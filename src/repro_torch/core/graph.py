@@ -1,0 +1,319 @@
+"""Sharded CSR graphs + generators (RMAT per the paper, ER, grid, chain, star).
+
+Counterpart of ``repro.core.graph``: host-side numpy, byte-identical to it
+for the same config (the parity tests compare every array).  The streaming
+delta patch (``apply_edge_delta``) and ``normalize_weights`` wait for the
+serving and pagerank slices (ROADMAP queue 1, items 11 and 5).
+
+Vertices are partitioned into P contiguous ranges ("workers"); each shard
+holds the out-edges of its vertices in CSR form, padded to the max per-shard
+edge count so every shard array has identical shape (SPMD requirement).
+Boundary maps (which local vertices have edges into shard q) are precomputed
+for the fault-recovery fallback path (DESIGN.md C3).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.configs.base import GraphConfig
+from repro_torch.dist.sharding import vertex_partition
+
+
+@dataclasses.dataclass
+class ShardedGraph:
+    """P-way vertex-partitioned CSR (host arrays; the engine moves them to
+    the device)."""
+
+    num_vertices: int  # global, includes padding to P*vs
+    num_real_vertices: int
+    num_edges: int
+    num_shards: int
+    vs: int  # vertices per shard
+    row_ptr: np.ndarray  # [P, vs+1] int64 (local edge offsets)
+    col_idx: np.ndarray  # [P, es] int32 global dst ids (padded with -1)
+    weights: Optional[np.ndarray]  # [P, es] f32 or None
+    edge_counts: np.ndarray  # [P] real edges per shard
+    boundary: np.ndarray  # [P, P, vs] bool: boundary[p, q, v] = v has edge -> q
+
+    @property
+    def es(self) -> int:
+        return self.col_idx.shape[1]
+
+    def degrees(self) -> np.ndarray:
+        return self.row_ptr[:, 1:] - self.row_ptr[:, :-1]  # [P, vs]
+
+    @classmethod
+    def from_arrays(cls, row_ptr, col_idx, weights, edge_counts, boundary, *,
+                    num_real_vertices: int) -> "ShardedGraph":
+        """Adopt host arrays built elsewhere (e.g. by the JAX package's
+        builder) as a graph of this package; sizes follow from the shapes.
+        The arrays are copied, so the two graphs never alias."""
+        row_ptr = np.array(row_ptr, np.int64)
+        col_idx = np.array(col_idx, np.int64)
+        edge_counts = np.array(edge_counts)
+        boundary = np.array(boundary, bool)
+        P, vs = row_ptr.shape[0], row_ptr.shape[1] - 1
+        if col_idx.shape[0] != P or edge_counts.shape != (P,) or \
+                boundary.shape != (P, P, vs):
+            raise ValueError(
+                f"inconsistent shapes: row_ptr {row_ptr.shape}, col_idx "
+                f"{col_idx.shape}, edge_counts {edge_counts.shape}, "
+                f"boundary {boundary.shape}")
+        if weights is not None:
+            weights = np.array(weights, np.float32)
+            if weights.shape != col_idx.shape:
+                raise ValueError(f"weights {weights.shape} != col_idx "
+                                 f"{col_idx.shape}")
+        return cls(num_vertices=P * vs, num_real_vertices=num_real_vertices,
+                   num_edges=int(edge_counts.sum()), num_shards=P, vs=vs,
+                   row_ptr=row_ptr, col_idx=col_idx, weights=weights,
+                   edge_counts=edge_counts, boundary=boundary)
+
+
+# ======================================================================
+# Generators (host-side numpy; deterministic per seed)
+# ======================================================================
+def rmat_edges(log2_n: int, avg_degree: int, abcd, seed: int) -> np.ndarray:
+    """R-MAT edge list [(src, dst)] (paper §5.1: recursive quadrant model)."""
+    n_bits = log2_n
+    m = (1 << log2_n) * avg_degree
+    rng = np.random.default_rng(seed)
+    a, b, c, d = abcd
+    # per-bit quadrant choice for all edges at once
+    src = np.zeros(m, dtype=np.int64)
+    dst = np.zeros(m, dtype=np.int64)
+    for bit in range(n_bits):
+        r = rng.random(m)
+        # quadrant probabilities with slight noise (standard RMAT smoothing)
+        right = r < (b + d)
+        r2 = rng.random(m)
+        down_given_right = r2 < (d / max(b + d, 1e-9))
+        down_given_left = r2 < (c / max(a + c, 1e-9))
+        down = np.where(right, down_given_right, down_given_left)
+        src = (src << 1) | down.astype(np.int64)
+        dst = (dst << 1) | right.astype(np.int64)
+    edges = np.stack([src, dst], axis=1)
+    return edges
+
+
+def er_edges(n: int, avg_degree: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    m = n * avg_degree
+    return rng.integers(0, n, size=(m, 2), dtype=np.int64)
+
+
+def grid_edges(n: int) -> np.ndarray:
+    side = int(np.sqrt(n))
+    idx = np.arange(side * side).reshape(side, side)
+    right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
+    down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
+    return np.concatenate([right, down], axis=0)
+
+
+def chain_edges(n: int) -> np.ndarray:
+    v = np.arange(n - 1)
+    return np.stack([v, v + 1], axis=1)
+
+
+def star_edges(n: int) -> np.ndarray:
+    v = np.arange(1, n)
+    return np.stack([np.zeros(n - 1, np.int64), v], axis=1)
+
+
+def generate_edges(cfg: GraphConfig) -> np.ndarray:
+    n = cfg.num_vertices
+    if cfg.generator == "rmat":
+        log2n = int(np.log2(n))
+        return rmat_edges(log2n, cfg.avg_degree, cfg.rmat_abcd, cfg.seed)
+    if cfg.generator == "er":
+        return er_edges(n, cfg.avg_degree, cfg.seed)
+    if cfg.generator == "grid":
+        return grid_edges(n)
+    if cfg.generator == "chain":
+        return chain_edges(n)
+    if cfg.generator == "star":
+        return star_edges(n)
+    raise ValueError(cfg.generator)
+
+
+# ======================================================================
+def _assemble_csr(n: int, P: int, src: np.ndarray, dst: np.ndarray,
+                  w_all: Optional[np.ndarray]) -> ShardedGraph:
+    """Sorted directed edge arrays -> P-way padded CSR.  ``src``/``dst``
+    (and ``w_all``, row-aligned) must already be lexsorted by (src, dst)
+    with self-loops dropped."""
+    part = vertex_partition(n, P)  # the engine's shard rule (dist/sharding)
+    vs = part.vs
+    n_pad = part.padded_vertices
+    shard = part.shard_of(src)
+
+    counts = np.bincount(shard, minlength=P)
+    es = max(int(counts.max()), 1)
+    row_ptr = np.zeros((P, vs + 1), dtype=np.int64)
+    col_idx = np.full((P, es), -1, dtype=np.int64)
+    weights = (np.zeros((P, es), dtype=np.float32)
+               if w_all is not None else None)
+
+    start = 0
+    for p in range(P):
+        cnt = int(counts[p])
+        s_loc = src[start: start + cnt] - p * vs
+        col_idx[p, :cnt] = dst[start: start + cnt]
+        if weights is not None:
+            weights[p, :cnt] = w_all[start: start + cnt]
+        row_ptr[p] = np.searchsorted(s_loc, np.arange(vs + 1))
+        start += cnt
+
+    boundary = np.zeros((P, P, vs), dtype=bool)
+    start = 0
+    for p in range(P):
+        cnt = int(counts[p])
+        s_loc = src[start: start + cnt] - p * vs
+        d_shard = dst[start: start + cnt] // vs
+        boundary[p, d_shard, s_loc] = True
+        start += cnt
+
+    return ShardedGraph(
+        num_vertices=n_pad, num_real_vertices=n, num_edges=len(src),
+        num_shards=P, vs=vs, row_ptr=row_ptr, col_idx=col_idx,
+        weights=weights, edge_counts=counts, boundary=boundary)
+
+
+def build_sharded_graph(cfg: GraphConfig,
+                        edges: Optional[np.ndarray] = None,
+                        symmetrize: bool = True) -> ShardedGraph:
+    """Edge list -> P-way padded CSR (+ reverse edges for undirected algos)."""
+    P = cfg.num_shards
+    if edges is None:
+        edges = generate_edges(cfg)
+    n = int(cfg.num_vertices)
+    if symmetrize:
+        edges = np.concatenate([edges, edges[:, ::-1]], axis=0)
+    # drop self-loops, dedup.  One sort of the packed (src, dst) key gives
+    # the rows of np.unique(edges, axis=0) in the same lexicographic
+    # order, several times faster than a row-wise unique + lexsort
+    edges = np.asarray(edges, np.int64)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    stride = np.int64(max(n, int(edges.max(initial=0)) + 1))
+    key = np.unique(edges[:, 0] * stride + edges[:, 1])
+    src, dst = key // stride, key % stride
+    w_all = None
+    if cfg.weighted:
+        rng = np.random.default_rng(cfg.seed + 7)
+        w_all = rng.uniform(0.1, 1.0, size=len(src)).astype(np.float32)
+    return _assemble_csr(n, P, src, dst, w_all)
+
+
+def edge_list(graph: ShardedGraph, with_weights: bool = False):
+    """Recover the exact directed edge list (lexsorted by (src, dst))
+    from a sharded CSR — the inverse of :func:`_assemble_csr`.  Returns
+    ``edges [E, 2]`` (or ``(edges, weights)``): the input to oracles."""
+    srcs, dsts, ws = [], [], []
+    for p in range(graph.num_shards):
+        cnt = int(graph.edge_counts[p])
+        deg = (graph.row_ptr[p, 1:] - graph.row_ptr[p, :-1]).astype(np.int64)
+        srcs.append(p * graph.vs + np.repeat(np.arange(graph.vs), deg))
+        dsts.append(graph.col_idx[p, :cnt])
+        if with_weights and graph.weights is not None:
+            ws.append(graph.weights[p, :cnt])
+    edges = np.stack([np.concatenate(srcs), np.concatenate(dsts)],
+                     axis=1).astype(np.int64)
+    if with_weights:
+        return edges, (np.concatenate(ws).astype(np.float32)
+                       if ws else np.ones(len(edges), np.float32))
+    return edges
+
+
+# ======================================================================
+# Host-side oracles for tests/benchmarks
+# ======================================================================
+def cc_oracle(n: int, edges: np.ndarray) -> np.ndarray:
+    """Union-find min-label connected components."""
+    parent = np.arange(n, dtype=np.int64)
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    for s, d in edges:
+        rs, rd = find(int(s)), find(int(d))
+        if rs != rd:
+            parent[max(rs, rd)] = min(rs, rd)
+    return np.array([find(i) for i in range(n)], dtype=np.int64)
+
+
+def reachability_oracle(n: int, edges: np.ndarray,
+                        source: int = 0) -> np.ndarray:
+    """1 iff reachable from ``source`` (on the symmetrized graph the
+    reachable set is exactly the source's connected component)."""
+    comp = cc_oracle(n, edges)
+    return (comp == comp[source]).astype(np.int64)
+
+
+def labelprop_oracle(n: int, edges: Optional[np.ndarray] = None,
+                     comp: Optional[np.ndarray] = None) -> np.ndarray:
+    """Max vertex id per component (the max-aggregator mirror of CC).
+
+    ``comp`` — precomputed per-vertex component ids (any labeling that is
+    constant within a component, e.g. CC output) — skips the union-find.
+    """
+    if comp is None:
+        comp = cc_oracle(n, edges)
+    max_of_comp = np.full(n, -1, dtype=np.int64)
+    np.maximum.at(max_of_comp, comp, np.arange(n, dtype=np.int64))
+    return max_of_comp[comp]
+
+
+def widest_path_oracle(n: int, src_arr: np.ndarray, dst_arr: np.ndarray,
+                       w_arr: np.ndarray, source: int = 0) -> np.ndarray:
+    """Max-min Dijkstra over a directed edge list: width[v] = max over
+    paths of the minimum edge weight along the path (source = +inf)."""
+    import heapq
+
+    adj: list[list[tuple[int, float]]] = [[] for _ in range(n)]
+    for s, d, wt in zip(src_arr, dst_arr, w_arr):
+        adj[int(s)].append((int(d), float(wt)))
+    width = np.zeros(n)
+    width[source] = np.inf
+    pq = [(-np.inf, source)]
+    while pq:
+        neg_wu, u = heapq.heappop(pq)
+        if -neg_wu < width[u]:
+            continue
+        for v, wt in adj[u]:
+            cand = min(width[u], wt)
+            if cand > width[v]:
+                width[v] = cand
+                heapq.heappush(pq, (-cand, v))
+    return width
+
+
+def sssp_oracle(n: int, edges: np.ndarray, w: np.ndarray,
+                source: int) -> np.ndarray:
+    """Dijkstra (heapq) over the symmetrized weighted graph."""
+    import heapq
+
+    adj: list[list[tuple[int, float]]] = [[] for _ in range(n)]
+    for (s, d), wt in zip(edges, w):
+        adj[int(s)].append((int(d), float(wt)))
+        adj[int(d)].append((int(s), float(wt)))
+    dist = np.full(n, np.inf)
+    dist[source] = 0.0
+    pq = [(0.0, source)]
+    while pq:
+        du, u = heapq.heappop(pq)
+        if du > dist[u]:
+            continue
+        for v, wt in adj[u]:
+            nd = du + wt
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(pq, (nd, v))
+    return dist

@@ -1,0 +1,139 @@
+"""Semiring edge propagation (the ASYMP hot loop): wrapper of the CUDA kernel.
+
+Counterpart of ``repro.kernels.semiring_spmv``, whose Pallas kernel
+``_spmv_kernel`` (``src/repro/kernels/semiring_spmv.py:71-97``, launched by
+``pl.pallas_call`` at ``:120``) this module's CUDA kernel
+``csrc/semiring_spmv.cu`` replaces.  The contract is unchanged — a
+pull-mode semiring SpMV over a destination-sorted, tile-padded edge
+stream, one ``[TILE]`` partial per ``EDGE_BLOCK`` of edges:
+
+    out[b, t] = tie(REDUCE_{e in block b, dst_e == t} COMBINE(v_e, w_e), identity)
+
+with semirings (min, .) for CC, (min, +) for SSSP/BFS, (max, .) for label
+propagation, (max, min) for widest path, (or, .) for reachability and
+(+, *) for PageRank.  Lanes no edge hits hold the identity; ``dst = -1``
+marks padding.  Every idempotent reduce is one of ``core.semiring``'s
+Aggregators, so kernel names and engine programs cannot drift.
+
+``spmv_partials`` launches the kernel for CUDA tensors and takes the plain
+version (``kernels/ref.py``) only for tensors on the CPU; there is no
+fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.semiring import for_semiring
+
+TILE = 128  # destination vertices per tile
+EDGE_BLOCK = 512  # edges per block
+
+SEMIRINGS = ("min", "min_plus", "max", "max_min", "or", "plus_times")
+# the C entry point's semiring and dtype codes (csrc/semiring_spmv.cu)
+_SEMIRING_CODE = {s: i for i, s in enumerate(SEMIRINGS)}
+_DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
+
+
+def _identity(semiring: str, dtype: torch.dtype):
+    """The aggregator's identity as a Python scalar of ``dtype``'s kind
+    (plus_times/SUM: 0)."""
+    agg = for_semiring(semiring)
+    kind = "float32" if dtype.is_floating_point else "int32"
+    return agg.identity(kind)
+
+
+def _combine(semiring: str, vals, w):
+    if semiring in ("min", "max", "or"):
+        return vals
+    if semiring == "min_plus":
+        return vals + w
+    if semiring == "max_min":
+        return torch.minimum(vals, w)  # path bottleneck
+    return vals * w  # plus_times
+
+
+def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
+                  edge_weights: Optional[torch.Tensor], *, semiring: str,
+                  use_mxu: bool = False) -> torch.Tensor:
+    """[n_blocks*EB] edge stream -> [n_blocks, TILE] per-block partials.
+
+    edge_dst_local: int32 destination index within the block's tile
+    (-1 = padding).  ``edge_weights`` may be None (unit weights).
+    ``use_mxu`` selects the JAX package's one-hot matmul form of
+    ``plus_times``; its tensor-core port is still open, so on the card it
+    raises, while the CPU's plain version computes the same sum.
+    """
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {semiring!r}; valid: {SEMIRINGS}")
+    n = edge_vals.shape[0]
+    if edge_vals.dim() != 1 or n % EDGE_BLOCK:
+        raise ValueError(f"edge stream must be 1-D with a length that is a "
+                         f"multiple of {EDGE_BLOCK}, got {tuple(edge_vals.shape)}")
+    if edge_vals.device.type == "cpu":
+        from repro_torch.kernels import ref
+        return ref.spmv_partials_ref(edge_vals, edge_dst_local, edge_weights,
+                                     semiring=semiring)
+    if edge_vals.device.type != "cuda":
+        raise ValueError(f"no kernel for device {edge_vals.device}")
+    if use_mxu:
+        raise NotImplementedError(
+            "the tensor-core (use_mxu=True) form of plus_times is not "
+            "ported yet (ROADMAP queue 2)")
+    dtype = edge_vals.dtype
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"edge_vals must be int32 or float32, got {dtype}")
+    if edge_dst_local.dtype != torch.int32 or \
+            edge_dst_local.shape != edge_vals.shape:
+        raise TypeError("edge_dst_local must be int32 of the same shape as "
+                        "edge_vals")
+    if edge_weights is not None:
+        if edge_weights.shape != edge_vals.shape:
+            raise ValueError("edge_weights must match edge_vals' shape")
+        # the value dtype, as the JAX wrapper casts it
+        edge_weights = edge_weights.to(dtype)
+    tensors = [edge_vals, edge_dst_local] + (
+        [edge_weights] if edge_weights is not None else [])
+    for t in tensors:
+        if t.device != edge_vals.device:
+            raise ValueError("all inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+
+    n_blocks = n // EDGE_BLOCK
+    out = torch.empty((n_blocks, TILE), dtype=dtype, device=edge_vals.device)
+    if n_blocks == 0:
+        return out
+    from repro_torch.kernels import _build
+    lib = _build.load("semiring_spmv")
+    device = edge_vals.device
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    # the library links its own CUDA runtime, which torch's current device
+    # does not reach, so the launch names its device itself
+    stream = torch.cuda.current_stream(index).cuda_stream
+    err = lib.spmv_partials_launch(
+        index, _SEMIRING_CODE[semiring], _DTYPE_CODE[dtype],
+        ctypes.c_void_p(edge_vals.data_ptr()),
+        ctypes.c_void_p(edge_dst_local.data_ptr()),
+        ctypes.c_void_p(edge_weights.data_ptr()
+                        if edge_weights is not None else None),
+        ctypes.c_void_p(out.data_ptr()), n_blocks, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"semiring_spmv kernel launch failed: CUDA error "
+                           f"{err} ({_build.error_string(lib, err)})")
+    key = f"{semiring}/{str(dtype).replace('torch.', '')}"
+    spmv_partials.launches_by_form[key] = \
+        spmv_partials.launches_by_form.get(key, 0) + 1
+    return out
+
+
+# launches of the CUDA kernel in this process per "semiring/dtype" form
+# (CPU calls never count)
+spmv_partials.launches_by_form = {}
+
+
+def reset_launch_counts() -> None:
+    spmv_partials.launches_by_form = {}

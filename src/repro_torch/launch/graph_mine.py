@@ -1,0 +1,180 @@
+"""ASYMP graph-mining job launcher on PyTorch (the paper's production job runner).
+
+Counterpart of ``repro.launch.graph_mine`` with the same options, plus
+``--device`` (default ``cuda``).  Runs the propagation phase to
+convergence and the merger phase; writes the output table and the
+metrics.  The options of slices not ported yet (fault injection,
+crowded-cluster emulation, the async schedule) exit non-zero naming the
+missing piece.
+
+  python -m repro_torch.launch.graph_mine --config asymp_cc
+  python -m repro_torch.launch.graph_mine --config asymp_sssp --out /tmp/sssp.tsv
+  python -m repro_torch.launch.graph_mine --config asymp_cc --reduced --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+
+from repro_torch._device import resolve_device
+from repro_torch.configs import get_graph_config
+from repro_torch.core import engine as E
+from repro_torch.core import graph as G
+from repro_torch.core import merger
+from repro_torch.core import programs as PR
+
+# options of later slices: flag -> what is missing
+_UNPORTED = {
+    "failures": "--failures needs fault injection and recovery "
+                "(ROADMAP queue 1, item 7)",
+    "latency_profile": "--latency-profile needs the crowded-cluster "
+                       "emulation (ROADMAP queue 1, item 8)",
+    "slowdown": "--slowdown needs the crowded-cluster emulation "
+                "(ROADMAP queue 1, item 8)",
+    "link_delay": "--link-delay needs the crowded-cluster emulation "
+                  "(ROADMAP queue 1, item 8)",
+    "intensity": "--intensity needs the crowded-cluster emulation "
+                 "(ROADMAP queue 1, item 8)",
+    "async_seed": "--async-seed needs the async schedule "
+                  "(ROADMAP queue 1, item 9)",
+}
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default="asymp_cc")
+    ap.add_argument("--algorithm", default=None, choices=sorted(PR.PROGRAMS),
+                    help="run any registered program on the config's graph "
+                         "(no dedicated config needed)")
+    ap.add_argument("--source", type=int, default=None,
+                    help="source vertex for single-source programs")
+    ap.add_argument("--failures", type=float, default=0.0,
+                    help="(not ported) fraction of shards to fail")
+    ap.add_argument("--priority", default=None)
+    ap.add_argument("--enforce", type=float, default=None)
+    ap.add_argument("--latency-profile", default=None,
+                    help="(not ported) crowded-cluster emulation profile")
+    ap.add_argument("--slowdown", type=float, default=None,
+                    help="(not ported) fraction of shards crowded")
+    ap.add_argument("--link-delay", type=int, default=None,
+                    help="(not ported) extra wire ticks on crowded links")
+    ap.add_argument("--intensity", type=int, default=None,
+                    help="(not ported) work-budget divisor for crowded shards")
+    ap.add_argument("--schedule", default=None, choices=("sync", "async"),
+                    help="sync = BSP tick barrier (async is not ported)")
+    ap.add_argument("--async-seed", type=int, default=None,
+                    help="(not ported) seed for the async interleaving")
+    ap.add_argument("--reduced", action="store_true",
+                    help="run the config's tiny .reduced() variant "
+                         "(CI smoke)")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--metrics", default="")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the CUDA card)")
+    return ap
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    # --failures 0 (the default) is a run without a fault plan
+    missing = [msg for flag, msg in _UNPORTED.items()
+               if getattr(args, flag) is not None
+               and not (flag == "failures" and args.failures == 0)]
+    if args.schedule == "async":
+        missing.append("--schedule async needs the async schedule "
+                       "(ROADMAP queue 1, item 9)")
+    if missing:
+        sys.exit("[graph_mine] not ported to repro_torch yet: "
+                 + "; ".join(missing))
+
+
+def main(argv=None) -> None:
+    args = _parser().parse_args(argv)
+    _refuse_unported(args)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:  # no card: say so instead of a traceback
+        sys.exit(f"[graph_mine] {e}")
+
+    cfg = get_graph_config(args.config)
+    kw = {}
+    if args.priority:
+        kw["priority"] = args.priority
+    if args.enforce is not None:
+        kw["enforce_fraction"] = args.enforce
+    if args.algorithm:
+        kw["algorithm"] = args.algorithm
+    if args.source is not None:
+        kw["source"] = args.source
+    if args.schedule is not None:
+        kw["schedule"] = args.schedule
+    if kw:
+        cfg = dataclasses.replace(cfg, **kw)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if cfg.latency_profile != "none":
+        sys.exit(f"[graph_mine] config {cfg.name} needs the crowded-cluster "
+                 f"emulation, not ported to repro_torch yet (ROADMAP queue "
+                 f"1, item 8)")
+    try:
+        prog = PR.get_program(cfg)
+    except NotImplementedError as e:
+        sys.exit(f"[graph_mine] {e}")
+    if prog.weighted and not cfg.weighted:
+        # weighted programs need edge weights on the graph
+        cfg = dataclasses.replace(cfg, weighted=True)
+
+    print(f"[graph_mine] {cfg.name}: program={prog.name} "
+          f"({prog.aggregator.name}-aggregation"
+          f"{', weighted' if prog.weighted else ''}) "
+          f"V={cfg.num_vertices} E~{cfg.num_edges} shards={cfg.num_shards} "
+          f"priority={cfg.priority}@{cfg.enforce_fraction} "
+          f"schedule={cfg.schedule} device={device}")
+    t0 = time.time()
+    graph = G.build_sharded_graph(cfg)
+    print(f"[graph_mine] built CSR in {time.time() - t0:.1f}s "
+          f"({graph.num_edges} directed edges after symmetrize)")
+
+    t0 = time.time()
+    try:
+        state, totals = E.run_to_convergence(cfg, graph=graph, prog=prog,
+                                             collect_log=True,
+                                             device=device)
+    except NotImplementedError as e:
+        sys.exit(f"[graph_mine] {e}")
+    wall = time.time() - t0
+    print(f"[graph_mine] propagation: {totals['ticks']} ticks, "
+          f"{totals['sent']} messages, {totals['failures']} failures, "
+          f"converged={totals['converged']} in {wall:.1f}s")
+
+    out = merger.extract(state, graph, prog)
+    if args.out:
+        with open(args.out, "w") as f:
+            for i, v in enumerate(out):
+                f.write(f"{i}\t{v}\n")
+        print(f"[graph_mine] wrote {len(out)} rows to {args.out}")
+    if args.metrics:
+        with open(args.metrics, "w") as f:
+            json.dump(dict(totals), f, indent=1)
+    if cfg.algorithm in ("cc", "labelprop"):
+        summary = f"components={len(np.unique(out))}"
+    elif cfg.algorithm == "reachability":
+        summary = f"reached={int(np.sum(out))}"
+    else:  # distance/width-valued programs: unreached = the identity
+        out_f = out.astype(np.float64)
+        reached = np.asarray(prog.aggregator.improves(out_f,
+                                                      float(prog.identity)))
+        finite = reached & np.isfinite(out_f)
+        summary = (f"reached={int(reached.sum())};"
+                   f"mean={out_f[finite].mean():.3f}" if finite.any()
+                   else f"reached={int(reached.sum())}")
+    print(f"[graph_mine] merger ({prog.name}): {len(out)} vertices, "
+          f"{summary}")
+
+
+if __name__ == "__main__":
+    main()

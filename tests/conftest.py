@@ -46,3 +46,8 @@ def rmat_cc_graph():
                       avg_degree=8, generator="rmat", num_shards=4,
                       priority="log", enforce_fraction=0.5)
     return cfg, build_sharded_graph(cfg)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips on a host without one)")

@@ -1,0 +1,116 @@
+"""The port on the card: the CUDA semiring SpMV kernel against its plain
+version, and the main path against its CPU run.
+
+Every test carries the ``gpu`` marker and skips on a host without a CUDA
+card (decided in the ``cuda`` fixture, not at import).  On a machine with
+one card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import GraphConfig  # noqa: E402
+from repro_torch.core import engine as E  # noqa: E402
+from repro_torch.core import graph as G  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.kernels import semiring_spmv as K  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+SWEEP = [("min", torch.int32), ("min", torch.float32),
+         ("min_plus", torch.float32), ("max", torch.int32),
+         ("max", torch.float32), ("max_min", torch.float32),
+         ("or", torch.int32), ("plus_times", torch.float32)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _inputs(seed, n, dtype, device):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        vals = rng.integers(0, 10_000, n).astype(np.int32)
+    else:
+        vals = rng.uniform(0.0, 10.0, n).astype(np.float32)
+    dst = rng.integers(-1, K.TILE, n).astype(np.int32)
+    w = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return put(vals), put(dst), put(w)
+
+
+def _launches():
+    return sum(K.spmv_partials.launches_by_form.values())
+
+
+def _check(kp, rp, semiring):
+    assert kp.shape == rp.shape and kp.dtype == rp.dtype
+    if semiring == "plus_times":  # sum order differs from the plain version
+        torch.testing.assert_close(kp, rp, rtol=1e-5, atol=1e-5)
+    else:  # idempotent reduces are exact
+        assert torch.equal(kp, rp)
+
+
+@pytest.mark.parametrize("semiring,dtype", SWEEP)
+@pytest.mark.parametrize("n_blocks", [1, 3, 8])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_kernel_matches_plain(cuda, semiring, dtype, n_blocks, weighted):
+    vals, dst, w = _inputs(n_blocks, n_blocks * K.EDGE_BLOCK, dtype, cuda)
+    w = w if weighted else None
+    before = _launches()
+    kp = K.spmv_partials(vals, dst, w, semiring=semiring)
+    torch.cuda.synchronize()
+    assert _launches() == before + 1
+    _check(kp, R.spmv_partials_ref(vals, dst, w, semiring=semiring),
+           semiring)
+
+
+def test_max_clamps_at_identity(cuda):
+    vals = torch.full((K.EDGE_BLOCK,), -5.0, device=cuda)
+    dst = torch.zeros((K.EDGE_BLOCK,), dtype=torch.int32, device=cuda)
+    k = K.spmv_partials(vals, dst, None, semiring="max")
+    assert torch.equal(k, R.spmv_partials_ref(vals, dst, None,
+                                              semiring="max"))
+    assert float(k[0, 0]) == 0.0
+
+
+def test_all_padding_block(cuda):
+    vals = torch.zeros((K.EDGE_BLOCK,), device=cuda)
+    dst = torch.full((K.EDGE_BLOCK,), -1, dtype=torch.int32, device=cuda)
+    assert bool(torch.isinf(K.spmv_partials(vals, dst, None,
+                                            semiring="min")).all())
+
+
+def test_wrapper_refuses(cuda):
+    vals, dst, w = _inputs(0, K.EDGE_BLOCK, torch.float32, cuda)
+    with pytest.raises(NotImplementedError):
+        K.spmv_partials(vals, dst, w, semiring="plus_times", use_mxu=True)
+    with pytest.raises(ValueError):
+        K.spmv_partials(vals[:100], dst[:100], None, semiring="min")
+    with pytest.raises(TypeError):
+        K.spmv_partials(vals, dst.long(), None, semiring="min")
+
+
+def test_main_path_matches_cpu(cuda):
+    cfg = GraphConfig(name="t", algorithm="cc", num_vertices=1024,
+                      avg_degree=8, generator="rmat", num_shards=4,
+                      priority="log", enforce_fraction=0.5)
+    g = G.build_sharded_graph(cfg)
+    before = _launches()
+    lab_gpu, st_gpu = ops.bsp_connected_components(g, device=cuda)
+    assert _launches() - before == st_gpu["rounds"]
+    lab_cpu, st_cpu = ops.bsp_connected_components(g, device="cpu")
+    assert st_gpu == st_cpu and torch.equal(lab_gpu.cpu(), lab_cpu)
+    s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda)
+    s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu")
+    for k in ("ticks", "sent", "accepted", "fetched", "converged"):
+        assert t_gpu[k] == t_cpu[k], k
+    for f in ("values", "active", "cursor"):
+        assert torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f))

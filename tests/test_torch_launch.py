@@ -1,0 +1,170 @@
+"""Port parity at the entry points: the ``graph_mine`` launcher, the device
+rule, the launch counter and the port's import boundary."""
+import ast
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers at once, and
+# each worker's own thread pool over all cores oversubscribes them
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_graph_config  # noqa: E402
+from repro_torch.core import engine as TE  # noqa: E402
+from repro_torch.core import graph as TG  # noqa: E402
+from repro_torch.kernels import ops as TO  # noqa: E402
+from repro_torch.kernels import semiring_spmv as TK  # noqa: E402
+from repro_torch.launch import graph_mine  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    src = str(REPO / "src")
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["OMP_NUM_THREADS"] = "1"  # as torch.set_num_threads(1) above
+    return env
+
+
+def _run(module, *args, cwd):
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300, check=False)
+
+
+@pytest.mark.parametrize("config", ["asymp_cc", "asymp_sssp",
+                                    "asymp_reach"])
+def test_graph_mine_tsv_identical_to_jax(tmp_path, config):
+    outs = {}
+    for pkg, extra in (("repro", ()), ("repro_torch", ("--device", "cpu"))):
+        tsv, met = tmp_path / f"{pkg}.tsv", tmp_path / f"{pkg}.json"
+        proc = _run(f"{pkg}.launch.graph_mine", "--config", config,
+                    "--reduced", "--out", str(tsv), "--metrics", str(met),
+                    *extra, cwd=tmp_path)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        outs[pkg] = (tsv.read_bytes(), json.loads(met.read_text()))
+    assert outs["repro"][0] == outs["repro_torch"][0]
+    jm, tm = outs["repro"][1], outs["repro_torch"][1]
+    for k in ("ticks", "sent", "accepted", "fetched", "converged", "log"):
+        assert jm[k] == tm[k], k
+
+
+@pytest.mark.parametrize("argv,missing", [
+    (["--failures", "0.5"], "fault injection"),
+    (["--latency-profile", "stragglers"], "crowded"),
+    (["--slowdown", "0.5"], "crowded"),
+    (["--link-delay", "2"], "crowded"),
+    (["--intensity", "4"], "crowded"),
+    (["--schedule", "async"], "async"),
+    (["--async-seed", "3"], "async"),
+    (["--config", "asymp_cc_crowded"], "crowded"),
+    (["--config", "asymp_pagerank"], "push mode"),
+])
+def test_graph_mine_refuses_unported(argv, missing, capsys):
+    with pytest.raises(SystemExit) as exc:
+        graph_mine.main(["--reduced", "--device", "cpu", *argv])
+    assert exc.value.code not in (0, None)
+    assert missing in str(exc.value.code) and "ROADMAP" in str(exc.value.code)
+
+
+def test_no_card_no_silent_fallback(monkeypatch):
+    """``device=None`` means the card: without one every entry point
+    raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_graph_config("asymp_cc").reduced()
+    g = TG.build_sharded_graph(cfg)
+    for call in (lambda: TE.run_to_convergence(cfg, graph=g),
+                 lambda: TE.EngineSession(cfg, graph=g),
+                 lambda: TO.bsp_connected_components(g),
+                 lambda: TO.pagerank(g, iters=1),
+                 lambda: TE.init_state(TE.prog_mod.get_program(cfg), g)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(SystemExit):
+        graph_mine.main(["--reduced"])
+
+
+def test_cpu_calls_never_count_launches():
+    before = dict(TK.spmv_partials.launches_by_form)
+    g = TG.build_sharded_graph(get_graph_config("asymp_cc").reduced())
+    labels, stats = TO.bsp_connected_components(g, device="cpu")
+    TO.pagerank(g, iters=2, device="cpu")
+    TK.spmv_partials(torch.zeros(512), torch.zeros(512, dtype=torch.int32),
+                     None, semiring="min")
+    assert stats["rounds"] > 0 and labels.device.type == "cpu"
+    assert TK.spmv_partials.launches_by_form == before
+
+
+def test_port_runs_without_jax_or_repro(tmp_path):
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import graph_mine\n"
+        "graph_mine.main(['--config', 'asymp_cc', '--reduced', "
+        "'--device', 'cpu'])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('CLEAN')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300, check=False)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith("CLEAN")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert not roots & {"jax", "jaxlib", "repro"}, f
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No card: non-zero and no result line; alone in a directory too."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(REPO / "chip_smoke.py", alone / "chip_smoke.py")
+    for script in (REPO / "chip_smoke.py", alone / "chip_smoke.py"):
+        proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                              env=dict(os.environ), capture_output=True,
+                              text=True, timeout=120, check=False)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
+
+
+def test_merger_output_table():
+    from repro_torch.core import merger, programs
+    cfg = get_graph_config("asymp_cc").reduced()
+    g = TG.build_sharded_graph(cfg)
+    state, totals = TE.run_to_convergence(cfg, graph=g, device="cpu")
+    prog = programs.get_program(cfg)
+    table = merger.output_table(state, g, prog)
+    assert len(table) == g.num_real_vertices and totals["converged"]
+    labels = merger.extract(state, g, prog)
+    assert np.array_equal(labels, TG.cc_oracle(g.num_real_vertices,
+                                               TG.edge_list(g)))
+    assert table[5] == (5, str(labels[5]))
