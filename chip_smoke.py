@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as it ends; any failed check exits non-zero:
+Phases, each printed as it ends with its seconds; any failed check exits
+non-zero:
 
   1. environment: torch, the card, ``nvidia-smi`` name and power limit;
   2. build: compile ``csrc/semiring_spmv.cu`` with nvcc, print ptxas' report;
-  3. the kernel against its plain PyTorch version on the same inputs —
-     every (semiring, dtype) of the sweep at 1/3/8 blocks, the all-padding
-     block, the max clamp, and the RMAT 2^18 pull stream of the main path;
-     idempotent semirings exactly, ``plus_times`` within rtol/atol 1e-5
-     (its sum order differs) — then its time there beside the plain
-     version's, one ``scatter_reduce_`` call's and the bytes bound;
+  3. the kernels against their plain PyTorch version on the same inputs —
+     every (semiring, dtype) of the sweep and the tensor-core
+     ``plus_times`` at 1/3/8 blocks, the all-padding block, the max clamp,
+     and the RMAT 2^18 pull stream of the main path; idempotent semirings
+     exactly, ``plus_times`` (both forms) within rtol/atol 1e-5 (their
+     sum orders differ) — then each form's time there beside the plain
+     version's, one ``scatter_reduce_`` call's and its bound;
   4. the main path at full size: ``asymp_cc_large`` (RMAT 2^18, 8 shards)
      to convergence on the prioritized engine, the kernel-backed BSP
      baseline, and the dense pagerank oracle (the kernel's plus_times
@@ -22,8 +24,19 @@ Phases, each printed as it ends; any failed check exits non-zero:
   5. the ``benchmarks/bench_speed.py --smoke`` configs (RMAT 2^12): the
      fixpoints against the union-find and labelprop oracles, and the
      tick/message counts beside the JAX package's committed baselines;
-  6. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+  6. push-mode pagerank at ``asymp_pagerank`` (RMAT 2^14, degree 16) to
+     convergence, held to ``tests/test_pagerank.py``'s verdict against the
+     kernel-backed dense oracle (80 iterations, absorb), then one
+     tensor-core pull step on the oracle's contribution vector against the
+     scalar form's;
+  7. faults (paper §5.5), ``FaultPlan(0.5, start_tick=4, every=6)``:
+     ``asymp_cc_large`` by replay — labels equal the fault-free labels,
+     4 failures — and ``asymp_pagerank`` by global checkpoint restore —
+     no replay, the verdict of phase 6;
+  8. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
+
+Launch counts are set to 0 before each path (4, 6, 7) and read after it.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -40,6 +53,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # non-tensor float32; int32 compares taken alike
+H100_BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor cores
 SWEEP = [("min", "int32"), ("min", "float32"), ("min_plus", "float32"),
          ("max", "int32"), ("max", "float32"), ("max_min", "float32"),
          ("or", "int32"), ("plus_times", "float32")]
@@ -47,6 +61,11 @@ SWEEP = [("min", "int32"), ("min", "float32"), ("min_plus", "float32"),
 SMOKE_BASELINE = {"cc": (120, 129164), "labelprop": (121, 129566)}
 PAGERANK_ITERS = 5
 PROFILE_WARM_TICKS, PROFILE_TICKS = 100, 20
+# the JAX package's seeded, fault-free asymp_pagerank run (CPU): ticks and
+# messages.  The card's float scatter-add is atomic, so its counts may move
+JAX_PAGERANK = (7202, 98730925)
+ORACLE_ITERS = 80
+PUSH_EPS = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -96,15 +115,37 @@ def spmv_inputs(np, torch, rng, n, dtype, dst=None):
     return put(vals), put(dst), put(w)
 
 
-def bound_of(semiring, n, n_blocks, weighted):
+def bound_of(semiring, n, n_blocks, weighted, mxu=False):
     """Least time for one call: each input read once, the output written
-    once, against one combine and one reduce per edge."""
+    once, against one combine and one reduce per edge (the tensor-core
+    form: its issued bf16 products, 2 x 128 x 512 x 8 per block)."""
     nbytes = n * (4 + 4 + (4 if weighted else 0)) + n_blocks * 128 * 4
-    ops = n * (1 if semiring in ("min", "max", "or") else 2)
+    if mxu:
+        t_ops = n_blocks * 2 * 128 * 512 * 8 / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    else:
+        ops = n * (1 if semiring in ("min", "max", "or") else 2)
+        t_ops = ops / H100_FP32_OPS_PER_S * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes
+
+
+def pagerank_verdict(torch, np, M, state, totals, g, oracle, where):
+    """``tests/test_pagerank.py::_verdict``: L1 of ranks/n to the oracle
+    below 1e-3, mass balance within 1e-5, no latched push, residuals at or
+    below push_eps.  Returns (l1, mass)."""
+    n = g.num_real_vertices
+    check(totals["converged"], f"{where}: pagerank did not converge")
+    ranks = state.values.reshape(-1)[:n].double()
+    l1 = float((ranks / n - oracle.double()).abs().sum())
+    mass = M.mass_balance(state, g)
+    check(bool(torch.isfinite(ranks).all()) and l1 < 1e-3,
+          f"{where}: L1 to the oracle {l1}")
+    check(abs(mass - 1.0) < 1e-5, f"{where}: mass balance {mass}")
+    check(bool((state.aux[:, 1] == 0).all()), f"{where}: a push is latched")
+    check(bool((state.aux[:, 0].reshape(-1)[:n] <= PUSH_EPS).all()),
+          f"{where}: a residual is above push_eps")
+    return l1, mass
 
 
 def main() -> int:
@@ -120,7 +161,9 @@ def main() -> int:
         from repro_torch.configs import get_graph_config
         from repro_torch.configs.base import GraphConfig
         from repro_torch.core import engine as E
+        from repro_torch.core import faults as F
         from repro_torch.core import graph as G
+        from repro_torch.core import merger as M
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
@@ -132,6 +175,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    phase_s = {}
+    t_phase = time.perf_counter()
     # ---- 1. environment ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -151,13 +196,16 @@ def main() -> int:
                                 or "Compiling" in line):
             print(f"[chip_smoke] ptxas: {line.strip()}", flush=True)
 
+    phase_s["environment_and_build"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     # ---- 3. kernel vs plain version ----
     rng = np.random.default_rng(0)
-    worst = {"idempotent": 0.0, "plus_times": 0.0}
+    worst = {"idempotent": 0.0, "plus_times": 0.0, "plus_times_mxu": 0.0}
 
-    def compare(semiring, kp, rp, where):
+    def compare(semiring, kp, rp, where, mxu=False):
         err = max_abs_err(torch, kp, rp)
-        fam = "plus_times" if semiring == "plus_times" else "idempotent"
+        fam = ("plus_times_mxu" if mxu else "plus_times"
+               if semiring == "plus_times" else "idempotent")
         worst[fam] = max(worst[fam], err)
         if semiring == "plus_times":
             check(torch.allclose(kp, rp, rtol=1e-5, atol=1e-5),
@@ -167,29 +215,43 @@ def main() -> int:
             check(torch.equal(kp, rp), f"{semiring} differs from its plain "
                                        f"version ({where}): max abs err {err}")
 
+    worst_mxu = {"vs_scalar": 0.0}
     n_small = 0
-    for semiring, dtype in SWEEP:
+    for semiring, dtype in SWEEP + [("plus_times_mxu", "float32")]:
+        mxu = semiring == "plus_times_mxu"
+        semiring = "plus_times" if mxu else semiring
         for n_blocks in (1, 3, 8):
             for weighted in (True, False):
                 v, d, w = spmv_inputs(np, torch, rng, n_blocks * 512, dtype)
                 w = w if weighted else None
-                kp = K.spmv_partials(v, d, w, semiring=semiring)
+                kp = K.spmv_partials(v, d, w, semiring=semiring, use_mxu=mxu)
                 rp = R.spmv_partials_ref(v, d, w, semiring=semiring)
                 torch.cuda.synchronize()
-                compare(semiring, kp, rp, f"{dtype}, {n_blocks} blocks")
+                compare(semiring, kp, rp, f"{dtype}, {n_blocks} blocks"
+                        f"{', tensor cores' if mxu else ''}", mxu)
+                if mxu:
+                    worst_mxu["vs_scalar"] = max(
+                        worst_mxu["vs_scalar"], max_abs_err(
+                            torch, kp, K.spmv_partials(v, d, w,
+                                                       semiring=semiring)))
                 n_small += 1
     pad_v = torch.zeros(512, device=dev)
     pad_d = torch.full((512,), -1, dtype=torch.int32, device=dev)
     check(bool(torch.isinf(K.spmv_partials(pad_v, pad_d, None,
                                            semiring="min")).all()),
           "all-padding block is not the min identity")
+    check(torch.equal(K.spmv_partials(pad_v + 1.0, pad_d, None,
+                                      semiring="plus_times", use_mxu=True),
+                      torch.zeros((1, 128), device=dev)),
+          "all-padding block is not 0 in the tensor-core form")
     clamp_v = torch.full((512,), -5.0, device=dev)
     clamp_d = torch.zeros(512, dtype=torch.int32, device=dev)
     kc = K.spmv_partials(clamp_v, clamp_d, None, semiring="max")
     check(torch.equal(kc, R.spmv_partials_ref(clamp_v, clamp_d, None,
                                               semiring="max"))
           and float(kc[0, 0]) == 0.0, "max does not clamp at the identity")
-    say("kernel_sweep", cases=n_small + 2, worst_abs_err=worst)
+    say("kernel_sweep", cases=n_small + 3, worst_abs_err=worst,
+        tensor_core_worst_abs_err_vs_scalar=worst_mxu["vs_scalar"])
 
     cfg_large = get_graph_config("asymp_cc_large")
     t0 = time.perf_counter()
@@ -207,18 +269,23 @@ def main() -> int:
 
     forms = []
     dst_main = pg.edge_dst_local
-    # the BSP path's own form first: min on int32 labels, no weights
-    for semiring, dtype, weighted in [("min", "int32", False)] + [
-            (s, d, True) for s, d in SWEEP]:
+    # the BSP path's own form first: min on int32 labels, no weights; the
+    # tensor-core plus_times last
+    for semiring, dtype, weighted, mxu in [("min", "int32", False, False)] + [
+            (s, d, True, False) for s, d in SWEEP] + [
+            ("plus_times", "float32", True, True)]:
         v, d, w = spmv_inputs(np, torch, rng, n_edges, dtype, dst=dst_main)
         w = w if weighted else None
-        kp = K.spmv_partials(v, d, w, semiring=semiring)
+        kp = K.spmv_partials(v, d, w, semiring=semiring, use_mxu=mxu)
         rp = R.spmv_partials_ref(v, d, w, semiring=semiring)
         torch.cuda.synchronize()
-        compare(semiring, kp, rp, f"{dtype}, RMAT 2^18 stream")
+        compare(semiring, kp, rp, f"{dtype}, RMAT 2^18 stream"
+                f"{', tensor cores' if mxu else ''}", mxu)
         err = max_abs_err(torch, kp, rp)
-        ms = cuda_ms(torch, lambda: K.spmv_partials(v, d, w,
-                                                    semiring=semiring), 20)
+        vs_scalar = (max_abs_err(torch, kp, K.spmv_partials(
+            v, d, w, semiring=semiring)) if mxu else None)
+        ms = cuda_ms(torch, lambda: K.spmv_partials(
+            v, d, w, semiring=semiring, use_mxu=mxu), 20)
         plain_ms = cuda_ms(torch, lambda: R.spmv_partials_ref(
             v, d, w, semiring=semiring), 5)
         # the library yardstick: one scatter_reduce_ over precomputed
@@ -239,17 +306,21 @@ def main() -> int:
               or semiring == "plus_times", f"library yardstick disagrees "
                                            f"({semiring})")
         bound_ms, bound_by, nbytes = bound_of(semiring, n_edges, n_blocks,
-                                              weighted)
+                                              weighted, mxu)
         form = {"semiring": semiring, "dtype": dtype, "weights": weighted,
+                "tensor_cores": mxu, "max_abs_err_vs_scalar": vs_scalar,
                 "blocks": n_blocks, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
         forms.append(form)
         say("kernel_at_main_shape", **form)
         del v, d, w, kp, rp, cand, seg, lib_out, block
+    phase_s["kernels"] = time.perf_counter() - t_phase
 
     # ---- 4. main path at full size ----
-    K.reset_launch_counts()
+    t_phase = time.perf_counter()
+    pg_dev = pg.to(dev)  # the RMAT 2^18 stream, uploaded once for BSP and
+    K.reset_launch_counts()  # the pagerank oracle
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -257,11 +328,13 @@ def main() -> int:
     torch.cuda.synchronize()
     prop_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    bsp_labels, bsp = ops.bsp_connected_components(graph, device=dev)
+    bsp_labels, bsp = ops.bsp_connected_components(graph, device=dev,
+                                                   pulled=pg_dev)
     torch.cuda.synchronize()
     bsp_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ranks = ops.pagerank(graph, iters=PAGERANK_ITERS, device=dev)
+    ranks = ops.pagerank(graph, iters=PAGERANK_ITERS, device=dev,
+                         pulled=pg_dev)
     torch.cuda.synchronize()
     pagerank_s = time.perf_counter() - t0
     launches = dict(K.spmv_partials.launches_by_form)
@@ -283,7 +356,8 @@ def main() -> int:
     check(bool(torch.isfinite(ranks).all())
           and abs(float(ranks.sum()) - 1.0) < 1e-3,
           f"pagerank mass {float(ranks.sum())} is not 1")
-    del state, bsp_labels, ranks, labels
+    cc_ticks = totals["ticks"]
+    del state, bsp_labels, ranks, pg_dev
 
     # ---- 4b. where an engine tick's time goes (a short profiled window) ----
     from torch.autograd import DeviceType
@@ -311,6 +385,7 @@ def main() -> int:
     by_op = sorted((r for r in rows if r.device_type != DeviceType.CUDA),
                    key=device_us, reverse=True)
     busy_us = sum(device_us(r) for r in on_card)
+    phase_s["main_path"] = time.perf_counter() - t_phase
     say("engine_tick_profile", ticks=f"{PROFILE_WARM_TICKS}.."
         f"{PROFILE_WARM_TICKS + PROFILE_TICKS}",
         window_s=window_s, device_busy_s=busy_us / 1e6,
@@ -321,6 +396,7 @@ def main() -> int:
     del sess, prof
 
     # ---- 5. bench_speed smoke configs against the oracles ----
+    t_phase = time.perf_counter()
     cfg = GraphConfig(name="smoke", algorithm="cc", num_vertices=1 << 12,
                       avg_degree=16, generator="rmat", num_shards=8,
                       priority="log", enforce_fraction=0.1)
@@ -341,8 +417,101 @@ def main() -> int:
             messages=tot["sent"], baseline_ticks=ticks0,
             baseline_messages=msgs0,
             counts_match=(tot["ticks"], tot["sent"]) == (ticks0, msgs0))
+    phase_s["bench_speed_smoke"] = time.perf_counter() - t_phase
 
-    # ---- 6. kernels line, card, last line ----
+    # ---- 6. push-mode pagerank at asymp_pagerank ----
+    t_phase = time.perf_counter()
+    cfg_pr = get_graph_config("asymp_pagerank")
+    g_pr = G.build_sharded_graph(cfg_pr)
+    pg_pr = ops.build_pulled_graph(g_pr).to(dev)
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_pr, tot_pr = E.run_to_convergence(cfg_pr, graph=g_pr, device=dev)
+    torch.cuda.synchronize()
+    pr_s = time.perf_counter() - t0
+    pr_peak = torch.cuda.max_memory_allocated()
+    oracle = ops.pagerank(g_pr, damping=cfg_pr.damping, iters=ORACLE_ITERS,
+                          dangling="absorb", device=dev, pulled=pg_pr)
+    # one tensor-core pull step on the oracle's contribution vector
+    n_real = g_pr.num_real_vertices
+    deg = torch.as_tensor(g_pr.degrees().reshape(-1)[:n_real],
+                          dtype=torch.float32, device=dev)
+    contrib = oracle / torch.clamp(deg, min=1.0)
+    pulled_mxu = ops.frontier_pull_step(contrib, pg_pr, semiring="plus_times",
+                                        use_mxu=True)
+    torch.cuda.synchronize()
+    pr_launches = dict(K.spmv_partials.launches_by_form)
+    pulled_scalar = ops.frontier_pull_step(contrib, pg_pr,
+                                           semiring="plus_times")
+    l1, mass = pagerank_verdict(torch, np, M, st_pr, tot_pr, g_pr, oracle,
+                                "asymp_pagerank")
+    mxu_err = max_abs_err(torch, pulled_mxu, pulled_scalar)
+    say("pagerank", config=cfg_pr.name, ticks=tot_pr["ticks"],
+        messages=tot_pr["sent"], jax_cpu_ticks=JAX_PAGERANK[0],
+        jax_cpu_messages=JAX_PAGERANK[1], propagation_s=pr_s,
+        ms_per_tick=pr_s / tot_pr["ticks"] * 1e3, l1_to_oracle=l1,
+        mass_balance=mass, max_memory_allocated=pr_peak,
+        mxu_pull_step_max_abs_err_vs_scalar=mxu_err,
+        kernel_launches=pr_launches)
+    check(torch.allclose(pulled_mxu, pulled_scalar, rtol=1e-5, atol=1e-5),
+          f"tensor-core pull step differs from the scalar one by {mxu_err}")
+    check(pr_launches.get("plus_times/float32", 0) == ORACLE_ITERS
+          and pr_launches.get("plus_times_mxu/float32", 0) == 1,
+          f"pagerank path launches {pr_launches}")
+    phase_s["pagerank"] = time.perf_counter() - t_phase
+
+    # ---- 7. faults (§5.5): replay (CC) and checkpoint restore (pagerank) --
+    t_phase = time.perf_counter()
+    plan = dict(fail_fraction=0.5, start_tick=4, every=6)  # graph_mine's
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_f, tot_f = E.run_to_convergence(cfg_large, graph=graph, device=dev,
+                                       fault_plan=F.FaultPlan(**plan))
+    torch.cuda.synchronize()
+    cc_fault_s = time.perf_counter() - t0
+    cc_fault_peak = torch.cuda.max_memory_allocated()
+    same = torch.equal(st_f.values.reshape(-1)[: graph.num_real_vertices],
+                       labels)
+    say("faults_replay", config=cfg_large.name, plan=plan,
+        ticks=tot_f["ticks"], fault_free_ticks=cc_ticks,
+        tick_overhead=tot_f["ticks"] / cc_ticks - 1.0,
+        propagation_s=cc_fault_s, fault_free_propagation_s=prop_s,
+        wall_time_ratio=cc_fault_s / prop_s, failures=tot_f["failures"],
+        replayed_messages=tot_f["replayed"], messages=tot_f["sent"],
+        labels_equal_fault_free=same, max_memory_allocated=cc_fault_peak)
+    check(tot_f["converged"] and same,
+          "CC under failures: labels differ from the fault-free labels")
+    check(tot_f["failures"] == 4 and tot_f["replayed"] > 0,
+          f"CC under failures: {tot_f['failures']} failures, "
+          f"{tot_f['replayed']} replayed")
+    del st_f, labels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st_pf, tot_pf = E.run_to_convergence(cfg_pr, graph=g_pr, device=dev,
+                                         fault_plan=F.FaultPlan(**plan))
+    torch.cuda.synchronize()
+    pr_fault_s = time.perf_counter() - t0
+    l1_f, mass_f = pagerank_verdict(torch, np, M, st_pf, tot_pf, g_pr, oracle,
+                                    "asymp_pagerank under failures")
+    fault_launches = dict(K.spmv_partials.launches_by_form)
+    say("faults_checkpoint", config=cfg_pr.name, plan=plan,
+        ticks=tot_pf["ticks"], fault_free_ticks=tot_pr["ticks"],
+        tick_overhead=tot_pf["ticks"] / tot_pr["ticks"] - 1.0,
+        propagation_s=pr_fault_s, wall_time_ratio=pr_fault_s / pr_s,
+        failures=tot_pf["failures"], replayed_messages=tot_pf["replayed"],
+        l1_to_oracle=l1_f, mass_balance=mass_f,
+        kernel_launches=fault_launches)
+    check(tot_pf["failures"] > 0 and tot_pf["replayed"] == 0,
+          f"pagerank under failures: {tot_pf['failures']} failures, "
+          f"{tot_pf['replayed']} replayed")
+    phase_s["faults"] = time.perf_counter() - t_phase
+    say("phase_seconds", **phase_s)
+
+    # ---- 8. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 
@@ -354,16 +523,26 @@ def main() -> int:
                 "bound_by": form["bound_by"],
                 "library_ms": form["library_ms"]}
 
+    # launches on the script's paths: the main path, pagerank, faults
+    paths = (launches, pr_launches, fault_launches)
     idem = entry("spmv_partials[min,max,min_plus,max_min,or] "
                  "(BSP path: min/int32)", forms[0],
-                 sum(n for k, n in launches.items()
+                 sum(n for path in paths for k, n in path.items()
                      if not k.startswith("plus_times")),
                  worst["idempotent"])
-    idem["forms"] = forms[1:-1]
-    pt_form = next(f for f in forms if f["semiring"] == "plus_times")
+    idem["forms"] = [f for f in forms[1:] if f["semiring"] != "plus_times"]
+    pt_form = next(f for f in forms if f["semiring"] == "plus_times"
+                   and not f["tensor_cores"])
     pt = entry("spmv_partials[plus_times] (pagerank oracle)", pt_form,
-               launches.get("plus_times/float32", 0), worst["plus_times"])
-    print(json.dumps({"kernels": [idem, pt]}), flush=True)
+               sum(path.get("plus_times/float32", 0) for path in paths),
+               worst["plus_times"])
+    mxu_form = next(f for f in forms if f["tensor_cores"])
+    mxu = entry("spmv_partials[plus_times, use_mxu=True] (tensor cores; "
+                "pagerank pull step)", mxu_form,
+                sum(path.get("plus_times_mxu/float32", 0) for path in paths),
+                worst["plus_times_mxu"])
+    mxu["replaces"] = "src/repro/kernels/semiring_spmv.py:80"
+    print(json.dumps({"kernels": [idem, pt, mxu]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,12 +14,18 @@ send buffers — the JAX package's ``vmap`` written out as a batch axis):
   receive  — idempotent scatter-⊕ via the program's Aggregator; improved
              vertices join the frontier
 
+Push mode (pagerank, the non-idempotent SUM aggregator) moves mass
+instead: a selected vertex latches its residual, banks it into
+``values`` exactly once, and ships only the edge prefix its cursor
+commits to; receives scatter-add into the residual plane (``aux``).
+
 The states and counters after every tick are bitwise those of the JAX
-package on the CPU (``tests/test_torch_engine.py``).  Not ported yet
-(each raises ``NotImplementedError`` where a caller asks for it): fault
-injection and recovery, the crowded-cluster ring, the async schedule,
-push-mode (non-idempotent) programs, the multi-rank tick and the serving
-hooks of ``EngineSession`` (ROADMAP queue 1).
+package on the CPU (``tests/test_torch_engine.py``,
+``tests/test_torch_pagerank.py``).  ``EngineSession`` drives fault plans
+(``core/faults.py``).  Not ported yet (each raises
+``NotImplementedError`` where a caller asks for it): the crowded-cluster
+ring, fault-injected slowdowns, the async schedule, the multi-rank tick
+and the serving hooks of ``EngineSession`` (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -46,8 +52,9 @@ class EngineState(NamedTuple):
     active: torch.Tensor  # [P, vs] bool
     cursor: torch.Tensor  # [P, vs] int32 — adjacency streaming position
     tick: torch.Tensor  # scalar int32
-    # push-mode sidecar planes [P, aux_channels, vs]; None for the
-    # idempotent programs of this package
+    # push-mode sidecar planes [P, aux_channels, vs] (None for idempotent
+    # programs): aux[:, 0] = residual, aux[:, 1] = latched mass mid-push.
+    # Checkpoints and restores carry it: it is program state.
     aux: Optional[torch.Tensor] = None
 
 
@@ -182,23 +189,42 @@ def _drop_scatter(target: torch.Tensor, idx: torch.Tensor,
 
 
 def _phase1_create(prog, ep: EngineParams, values, active, cursor,
-                   row_ptr, col_idx, weights):
+                   row_ptr, col_idx, weights, aux=None):
     """Select + fetch + create + route for all P shards.  Returns
     ``(active, cursor, send_vals [P, Pn, cap], send_ids [P, Pn, cap],
-    sent [P], fetched [P])``."""
+    sent [P], fetched [P], values, aux)``; values and aux change only in
+    push mode (``aux`` given).
+
+    Push mode: a selected vertex not mid-push (latch 0 AND cursor 0)
+    latches ``m = residual``, zeroes the residual and banks ``values +=
+    m``, once per push however many ticks its edge stream takes.
+    Messages carry ``combine(m, w, deg)``, and only the contiguous edge
+    prefix up to the first routing drop ships: a kept edge after the drop
+    is fetched again when the cursor resumes there, which would count its
+    mass twice under SUM.  When the stream completes the latch clears and
+    the vertex stays active iff its residual re-accumulated past
+    ``push_eps``."""
     P = values.shape[0]
     vs, M, D = ep.vs, ep.max_vertices_per_tick, ep.degree_window
     Pn, cap = ep.num_shards, ep.route_capacity
     dev = values.device
+    push_mode = aux is not None
+    if push_mode:
+        residual, pushv = aux[:, 0], aux[:, 1]
 
     # ---- select (priority queue with enforcement fraction) ----
     # bucket histogram + cumsum threshold + rank-by-cumsum (no [vs] sort)
     n_active = active.sum(dim=1, dtype=_I32)  # [P]
     target = torch.clamp(torch.ceil(n_active.to(torch.float32)
                                     * ep.enforce_fraction), 1, M).to(_I32)
-    pkey = prog.aggregator.priority_key(prog.priority_value(values),
-                                        ep.priority_scale)
-    buckets = priority_buckets(pkey, ep.priority, ep.priority_scale)
+    # push mode ranks by pending mass: residual + latched push
+    potential = residual + pushv if push_mode else values
+    if prog.bucketize is not None:
+        buckets = prog.bucketize(potential, ep.priority, ep.priority_scale)
+    else:
+        pkey = prog.aggregator.priority_key(prog.priority_value(potential),
+                                            ep.priority_scale)
+        buckets = priority_buckets(pkey, ep.priority, ep.priority_scale)
     hist = torch.zeros((P, N_BUCKETS), dtype=_I32, device=dev).scatter_add_(
         1, buckets.to(torch.int64), active.to(_I32))
     cum = torch.cumsum(hist, dim=1, dtype=_I32)
@@ -248,8 +274,16 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
          if weights is not None else None)
 
     # ---- create messages ----
-    src_vals = torch.gather(values, 1, sel_safe)[:, :, None]  # [P, M, 1]
-    msg = prog.combine(src_vals, w).expand(P, M, D)
+    if push_mode:
+        res_sel = torch.gather(residual, 1, sel_safe)
+        push_sel = torch.gather(pushv, 1, sel_safe)
+        latch = sel_valid & (push_sel == 0) & (cur == 0)
+        mass = torch.where(latch, res_sel, push_sel)  # [P, M]
+        msg = prog.combine(mass[:, :, None], w, deg[:, :, None]
+                           ).expand(P, M, D)
+    else:
+        src_vals = torch.gather(values, 1, sel_safe)[:, :, None]  # [P, M, 1]
+        msg = prog.combine(src_vals, w).expand(P, M, D)
 
     # ---- route: bucket by destination shard, bounded capacity ----
     L = M * D
@@ -271,6 +305,8 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
     dropped = edge_valid & ~keep
     first_drop = torch.where(dropped.any(dim=2),
                              torch.argmax(dropped.to(_I32), dim=2), D)
+    if push_mode:  # exactly-once: ship only the prefix the cursor passes
+        keep = keep & (offs < first_drop[:, :, None])
     # one spare slot per destination row takes every unkept message
     r_safe = torch.where(keep, rank, cap)
     ds_safe = torch.where(keep, dst_shard, 0).to(torch.int64)
@@ -290,11 +326,25 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
     done = sel_valid & (new_cur >= deg)
     upd_idx = torch.where(sel_valid, sel, vs)  # OOB -> dropped
     cursor = _drop_scatter(cursor, upd_idx, torch.where(done, 0, new_cur))
-    active = _drop_scatter(active, upd_idx, ~done)
+    if push_mode:
+        res_after = torch.where(latch, 0.0, res_sel)
+        banked = torch.gather(values, 1, sel_safe) + torch.where(latch, mass,
+                                                                 0.0)
+        values = _drop_scatter(values, upd_idx, banked)
+        residual = _drop_scatter(residual, upd_idx, res_after)
+        pushv = _drop_scatter(pushv, upd_idx, torch.where(done, 0.0, mass))
+        # a finished push re-arms iff mass arrived while it streamed (the
+        # receive never touches the cursor in push mode); abs: signed
+        # correction mass drains like positive mass
+        active = _drop_scatter(active, upd_idx, torch.where(
+            done, torch.abs(res_after) > prog.push_eps, True))
+        aux = torch.stack([residual, pushv], dim=1)
+    else:
+        active = _drop_scatter(active, upd_idx, ~done)
 
     sent = keep.sum(dim=(1, 2))
     fetched = edge_valid.sum(dim=(1, 2))
-    return active, cursor, send_vals, send_ids, sent, fetched
+    return active, cursor, send_vals, send_ids, sent, fetched, values, aux
 
 
 def _phase2_receive(prog, ep: EngineParams, values, active, cursor,
@@ -318,31 +368,54 @@ def _phase2_receive(prog, ep: EngineParams, values, active, cursor,
     return values, active, cursor, accepted
 
 
+def _phase2_receive_push(prog, ep: EngineParams, residual, active,
+                         recv_vals, recv_ids):
+    """Push-mode delivery: scatter-add into the residual plane; vertices
+    whose |residual| passes ``push_eps`` join the frontier.  The banked
+    ``values`` and the cursor are untouched: restarting an edge stream
+    in flight would ship its delivered prefix again."""
+    agg = prog.aggregator
+    P = residual.shape[0]
+    ids = recv_ids.reshape(P, -1)
+    vals = recv_vals.reshape(P, -1).to(prog.tdtype)
+    valid = ids >= 0
+    idx = torch.where(valid, ids, ep.vs)  # vs -> dropped (out of bounds)
+    residual = agg.scatter(residual, idx,
+                           torch.where(valid, vals, prog.identity))
+    accepted = valid.sum(dim=1)  # every delivered message lands mass
+    active = active | (torch.abs(residual) > prog.push_eps)
+    return residual, active, accepted
+
+
 # ======================================================================
 # Local (single-device) execution
 # ======================================================================
 def make_local_tick(prog, ep: EngineParams, weighted: bool):
     """``tick(state, g) -> (state', TickStats, (send_vals, send_ids))``:
-    one tick of all shards, exchanged by the local transport."""
-    if not prog.aggregator.idempotent or prog.aux_channels:
-        raise NotImplementedError(
-            f"program {prog.name!r} needs the push-mode tick, which is not "
-            "ported yet (ROADMAP queue 1, item 5)")
+    one tick of all shards, exchanged by the local transport.  Push-mode
+    (non-idempotent) programs thread their ``aux`` planes through it."""
     codec = wire_codec(prog, ep)
+    push_mode = not prog.aggregator.idempotent
 
     def tick(state: EngineState, g: ShardGraph):
         w = g.weights if weighted else None
-        active, cursor, sv, si, sent, fetched = _phase1_create(
+        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
             prog, ep, state.values, state.active, state.cursor, g.row_ptr,
-            g.col_idx, w)
+            g.col_idx, w, aux=state.aux if push_mode else None)
         # exchange: send[p][q] -> recv[q][p] via the dist substrate
         rv, ri = ex_mod.exchange_local(codec, sv, si)
-        values, active, cursor, accepted = _phase2_receive(
-            prog, ep, state.values, active, cursor, rv, ri)
+        if push_mode:
+            residual, active, accepted = _phase2_receive_push(
+                prog, ep, aux[:, 0], active, rv, ri)
+            aux = torch.stack([residual, aux[:, 1]], dim=1)
+        else:
+            values, active, cursor, accepted = _phase2_receive(
+                prog, ep, values, active, cursor, rv, ri)
+            aux = state.aux  # None, or an untouched caller-supplied plane
         stats = TickStats(active.sum(), sent.sum(), accepted.sum(),
                           fetched.sum())
         return (EngineState(values=values, active=active, cursor=cursor,
-                            tick=state.tick + 1, aux=state.aux),
+                            tick=state.tick + 1, aux=aux),
                 stats, (sv, si))
 
     return tick
@@ -353,23 +426,22 @@ def make_local_tick(prog, ep: EngineParams, weighted: bool):
 # ======================================================================
 def init_state(prog, graph: ShardedGraph,
                device: DeviceLike = None) -> EngineState:
-    if prog.aux_channels:
-        raise NotImplementedError("push-mode aux planes are not ported yet "
-                                  "(ROADMAP queue 1, item 5)")
     dev = resolve_device(device)
     P_, vs = graph.num_shards, graph.vs
     gids = torch.arange(P_ * vs, dtype=_I32, device=dev).reshape(P_, vs)
     valid = gids < graph.num_real_vertices
     values, active = prog.init(gids, valid)
+    aux = prog.init_aux(gids, valid) if prog.aux_channels else None
     return EngineState(values, active,
                        torch.zeros((P_, vs), dtype=_I32, device=dev),
-                       torch.zeros((), dtype=_I32, device=dev), None)
+                       torch.zeros((), dtype=_I32, device=dev), aux)
 
 
 def state_from_numpy(values, active, cursor, tick, aux=None, *,
                      device: DeviceLike = None) -> EngineState:
     """An :class:`EngineState` from host arrays — e.g. a JAX engine's state
-    mid-run, handed over as numpy so both engines tick on from one point."""
+    mid-run, handed over as numpy so both engines tick on from one point
+    (``aux``: a push-mode run's ``[P, aux_channels, vs]`` planes)."""
     dev = resolve_device(device)
     values = np.asarray(values)
     if values.dtype not in (np.int32, np.float32):
@@ -397,9 +469,13 @@ class EngineSession:
     loop behind :func:`run_to_convergence` (tick a few steps, read the
     state, tick again).
 
-    The JAX package's session also drives fault plans, the crowded-cluster
-    ring and the async schedule; those are not ported yet, and asking for
-    one raises ``NotImplementedError`` rather than running without it.
+    ``fault_plan`` (a ``core.faults.FaultPlan``) kills shards on the
+    plan's host steps; after each tick the session records the tick in
+    the ``FaultManager``, then lets it fail and recover shards, as the JAX
+    package orders it.  The JAX package's session also drives the
+    crowded-cluster ring, fault-injected slowdowns and the async
+    schedule; those are not ported yet, and asking for one raises
+    ``NotImplementedError`` rather than running without it.
     ``device=None`` means the CUDA card (raises if there is none).
     """
 
@@ -414,8 +490,10 @@ class EngineSession:
             raise ValueError(f"unknown schedule {schedule!r}; "
                              f"valid: 'sync', 'async'")
         missing = []
-        if fault_plan is not None:
-            missing.append("fault injection (ROADMAP queue 1, item 7)")
+        if fault_plan is not None and fault_plan.slow_fraction > 0:
+            missing.append("fault injection with slowdowns (slow_fraction "
+                           "> 0) needs the crowded-cluster emulation "
+                           "(ROADMAP queue 1, item 8)")
         if latency is not None or cfg.latency_profile != "none":
             missing.append("crowded-cluster emulation (ROADMAP queue 1, "
                            "item 8)")
@@ -431,6 +509,7 @@ class EngineSession:
         self.g = to_device_graph(self.graph, self.device)
         self.collect_log = collect_log
         self.schedule = schedule
+        self.fault_plan = fault_plan
         self.log: list = []
         self.totals = {"ticks": 0, "sent": 0, "accepted": 0, "fetched": 0,
                        "replayed": 0, "failures": 0, "pending": 0,
@@ -439,20 +518,34 @@ class EngineSession:
         self._init_plain()
 
     def _init_plain(self) -> None:
+        from repro_torch.core import faults
+        self.fault_mgr = (faults.FaultManager(self.cfg, self.graph,
+                                              self.prog, self.ep,
+                                              device=self.device)
+                          if self.fault_plan is not None else None)
         self._tick_fn = make_local_tick(self.prog, self.ep,
                                         self.prog.weighted)
         self._state = init_state(self.prog, self.graph, self.device)
         self._n_active = int(torch.sum(self._state.active))
 
     def _step_plain(self) -> None:
-        t = self._t
-        state, stats, _ = self._tick_fn(self._state, self.g)
+        t, fault_mgr = self._t, self.fault_mgr
+        state, stats, send_bufs = self._tick_fn(self._state, self.g)
         n_active = int(stats.active)
         totals = self.totals
         totals["ticks"] += 1
         totals["sent"] += int(stats.sent)
         totals["accepted"] += int(stats.accepted)
         totals["fetched"] += int(stats.fetched)
+        if fault_mgr is not None:
+            # the kill schedule is keyed on the host step, as in the JAX
+            # package
+            fault_mgr.record(t, state, send_bufs)
+            state, extra = fault_mgr.maybe_fail(t, state, self.fault_plan)
+            totals["replayed"] += extra["replayed"]
+            totals["failures"] += extra["failures"]
+            if extra["failures"]:
+                n_active = int(torch.sum(state.active))
         if self.collect_log:
             self.log.append({"tick": t, "active": n_active,
                              "sent": int(stats.sent),
@@ -472,7 +565,7 @@ class EngineSession:
         return self._n_active == 0
 
     def step(self) -> None:
-        """Run exactly one engine tick."""
+        """Run exactly one engine tick (plus its fault bookkeeping)."""
         self._step_plain()
         self._t += 1
 

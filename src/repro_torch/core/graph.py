@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.core.graph``: host-side numpy, byte-identical to it
 for the same config (the parity tests compare every array).  The streaming
-delta patch (``apply_edge_delta``) and ``normalize_weights`` wait for the
-serving and pagerank slices (ROADMAP queue 1, items 11 and 5).
+delta patch (``apply_edge_delta``) waits for the serving slice (ROADMAP
+queue 1, item 11).
 
 Vertices are partitioned into P contiguous ranges ("workers"); each shard
 holds the out-edges of its vertices in CSR form, padded to the max per-shard
@@ -205,6 +205,31 @@ def build_sharded_graph(cfg: GraphConfig,
         rng = np.random.default_rng(cfg.seed + 7)
         w_all = rng.uniform(0.1, 1.0, size=len(src)).astype(np.float32)
     return _assemble_csr(n, P, src, dst, w_all)
+
+
+def normalize_weights(graph: ShardedGraph) -> ShardedGraph:
+    """Per-source transition normalization for weighted pagerank: every
+    edge weight becomes ``w_e / strength(src)`` (strength = summed outgoing
+    weight, in float64), so a push of mass ``m`` sends ``d·m·w_e`` and
+    its edges carry exactly ``d·m`` together.  Unweighted graphs get
+    uniform ``1/deg`` weights.
+
+    Byte-identical to the JAX package's per-shard ``np.add.at`` loop: one
+    ``np.bincount`` over all shards adds each vertex's weights in the same
+    (edge) order."""
+    P, vs, es = graph.num_shards, graph.vs, graph.es
+    counts = np.asarray(graph.edge_counts, np.int64)
+    deg = (graph.row_ptr[:, 1:] - graph.row_ptr[:, :-1]).astype(np.int64)
+    # each real edge's global source slot p * vs + local source
+    src = np.repeat(np.arange(P * vs), deg.reshape(-1))
+    real = np.arange(es)[None, :] < counts[:, None]  # [P, es]
+    we = (graph.weights[real] if graph.weights is not None
+          else np.ones(int(counts.sum()), np.float32))
+    strength = np.bincount(src, weights=we.astype(np.float64),
+                           minlength=P * vs)
+    out = np.zeros((P, es), dtype=np.float32)
+    out[real] = (we / np.maximum(strength[src], 1e-30)).astype(np.float32)
+    return dataclasses.replace(graph, weights=out)
 
 
 def edge_list(graph: ShardedGraph, with_weights: bool = False):

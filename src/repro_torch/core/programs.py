@@ -1,12 +1,14 @@
 """Vertex programs (the paper's user API: Init / CreateMessage /
 ReceiveMessage / GetOutputString, §4) over pluggable aggregation semirings.
 
-Counterpart of ``repro.core.programs`` for the six idempotent programs —
-cc, sssp, bfs, reachability, widest_path and labelprop.  Their receive
-reduce is an idempotent :class:`~repro_torch.core.semiring.Aggregator`, so
-they tolerate arbitrary message order, duplication and replay (§3.3).
-Push-mode ``pagerank`` (the SUM aggregator and the ``aux`` planes) waits
-for its slice: ``get_program("pagerank")`` raises ``NotImplementedError``.
+Counterpart of ``repro.core.programs``.  The six idempotent programs —
+cc, sssp, bfs, reachability, widest_path and labelprop — reduce with an
+idempotent :class:`~repro_torch.core.semiring.Aggregator`, so they
+tolerate arbitrary message order, duplication and replay (§3.3).
+``pagerank`` reduces with SUM, which is not idempotent: it sets
+``self_stabilizing=False`` (recovery takes a global checkpoint restore)
+and runs the engine's push mode, with ``aux_channels`` sidecar planes
+beside ``values`` (channel 0 the residual, channel 1 the push latch).
 
 The registry is parameterized: ``get_program("sssp", source=5)`` or
 ``get_program(cfg)`` (which forwards ``cfg.source`` / ``cfg.damping`` to
@@ -15,12 +17,13 @@ programs that take them).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.semiring import INT_INF, MAX, MIN, OR, Aggregator
+from repro_torch.core.semiring import INT_INF, MAX, MIN, OR, SUM, Aggregator
 
 F32_INF = float("inf")
 
@@ -33,7 +36,8 @@ class VertexProgram:
     weighted: bool
     # init(global_ids [.., vs] int32, valid [.., vs] bool) -> (values, active)
     init: Callable
-    # combine(src_value [.., M, 1], weight [.., M, D] | None) -> messages
+    # combine(src_value [.., M, 1], weight [.., M, D] | None) -> messages;
+    # push-mode programs take a third argument, the degrees [.., M, 1]
     combine: Callable
     # priority_value(values) -> f32 raw potential metric; the aggregator's
     # priority_key orients it
@@ -47,10 +51,17 @@ class VertexProgram:
     value_bound: Optional[Callable] = None
     # priority normalization hint (None -> num_vertices)
     priority_scale: Optional[float] = None
-    # push-mode sidecar planes (0 for every program of this package yet)
+    # push-mode sidecar planes riding EngineState.aux as [P, channels, vs]
+    # (0 = none; pagerank has 2: the residual and the push latch)
     aux_channels: int = 0
+    # init_aux(global_ids [.., vs], valid) -> aux [.., aux_channels, vs]
     init_aux: Optional[Callable] = None
+    # push-mode activation threshold on |residual|
     push_eps: float = 0.0
+    # bucketize(pending, strategy, scale) -> int32 buckets: when set, the
+    # engine buckets push-mode pending mass with it instead of
+    # priority_buckets(priority_key(priority_value(pending)))
+    bucketize: Optional[Callable] = None
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -186,13 +197,104 @@ def labelprop() -> VertexProgram:
                          priority_value)
 
 
+# pagerank's priority buckets as float32 thresholds on |pending mass|.
+# The reference buckets -log2(max(|pending|, 2**-24)) at scale 24, with
+# XLA's float32 log, which is not correctly rounded: a torch.log2
+# transcription moves 5 log buckets and 66 linear buckets over the float32
+# range.  The composed map from |pending| to its bucket is monotone
+# (non-increasing), so it is fixed by 31 thresholds per strategy:
+# _PAGERANK_BUCKET_EDGES[strategy][k - 1] is the largest float32 (as
+# bits) that the reference puts in bucket >= k.  tests/test_torch_pagerank.py
+# re-derives both tables from the JAX package by bisection.
+_PAGERANK_SCALE = 24.0
+_PAGERANK_BUCKET_EDGES = {
+    "log": (
+        0x3f7fffff, 0x3f7fffff, 0x3f7fffff, 0x3f7fffff, 0x3f7ffffd,
+        0x3f7ffffb, 0x3f7ffff7, 0x3f7fffef, 0x3f7fffde, 0x3f7fffbd,
+        0x3f7fff7a, 0x3f7ffef5, 0x3f7ffdeb, 0x3f7ffbd7, 0x3f7ff7ae,
+        0x3f7fef5d, 0x3f7fdebc, 0x3f7fbd7d, 0x3f7f7b0d, 0x3f7ef65f,
+        0x3f7dedd1, 0x3f7bdfed, 0x3f77d0df, 0x3f6fe4ba, 0x3f60ccdf,
+        0x3f456729, 0x3f1837ed, 0x3eb504ff, 0x3e000008, 0x3c7ffffb,
+        0x397fffb7),
+    "linear": (
+        0x3f1837f0, 0x3eb504f4, 0x3e5744fd, 0x3e000000, 0x3d9837f2,
+        0x3d3504f4, 0x3cd744ff, 0x3c800001, 0x3c1837f3, 0x3bb504f8,
+        0x3b5744fe, 0x3b000001, 0x3a9837f3, 0x3a3504f8, 0x39d744fe,
+        0x39800003, 0x391837f5, 0x38b504fb, 0x38574508, 0x38000007,
+        0x379837fa, 0x373504f5, 0x36d74501, 0x36800003, 0x361837f6,
+        0x35b504fb, 0x35574508, 0x35000007, 0x349837f0, 0x343504f5,
+        0x33d744fa),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _pagerank_edges(strategy: str, device: torch.device) -> torch.Tensor:
+    """The thresholds in ascending order, as float32 on ``device``."""
+    bits = torch.tensor(_PAGERANK_BUCKET_EDGES[strategy][::-1],
+                        dtype=torch.int32)
+    return bits.view(torch.float32).to(device)
+
+
+def _pagerank_bucketize(pending: torch.Tensor, strategy: str,
+                        scale: float) -> torch.Tensor:
+    if strategy == "disabled":
+        return torch.zeros(pending.shape, dtype=torch.int32,
+                           device=pending.device)
+    if strategy not in _PAGERANK_BUCKET_EDGES or scale != _PAGERANK_SCALE:
+        raise ValueError(f"pagerank buckets exist for strategies "
+                         f"{sorted(_PAGERANK_BUCKET_EDGES)} at scale "
+                         f"{_PAGERANK_SCALE}, not {strategy!r} at {scale}")
+    # bucket = the number of thresholds at or above |pending|
+    edges = _pagerank_edges(strategy, pending.device)
+    below = torch.searchsorted(edges, torch.abs(pending).contiguous())
+    return (len(edges) - below).to(torch.int32)
+
+
 def pagerank(damping: float = 0.85, push_eps: float = 1e-5,
              restart: Optional[int] = None,
              weighted: bool = False) -> VertexProgram:
-    """Residual-push PageRank: not ported yet (push-mode engine planes)."""
-    raise NotImplementedError(
-        "the push-mode pagerank program is not ported yet (ROADMAP queue 1, "
-        "item 5: push mode); run it with the JAX package")
+    """Residual-push PageRank over the SUM aggregator.
+
+    ``values`` is the banked rank, ``aux[0]`` the residual (incoming mass
+    accumulates there by scatter-add) and ``aux[1]`` the push latch: a
+    selected vertex latches ``m = residual``, banks ``values += m`` and
+    streams ``d * m / deg`` along every edge, across ticks under
+    backpressure.  It solves ``p = (1-d)·1 + d·P^T p`` (``p / n`` is the
+    PageRank distribution; ``kernels/ops.pagerank`` with
+    ``dangling="absorb"`` is the dense pull-mode oracle).
+
+    ``restart`` — a personalized restart vertex: the seed residual is
+    ``1-d`` there and zero elsewhere.  ``weighted`` — pushes split mass by
+    transition weights, which callers pre-normalize per source vertex
+    (``core.graph.normalize_weights``), so ``combine`` sends ``d·m·w``.
+    """
+
+    def init(global_ids, valid):
+        del global_ids
+        return torch.zeros(valid.shape, dtype=torch.float32,
+                           device=valid.device), valid
+
+    def init_aux(global_ids, valid):
+        seeded = valid if restart is None else valid & (global_ids == restart)
+        residual = _f32(torch.where(seeded, 1.0 - damping, 0.0))
+        return torch.stack([residual, torch.zeros_like(residual)], dim=-2)
+
+    def combine(mass, weights, degrees):
+        if weighted:
+            return damping * mass * weights
+        # unweighted: mass splits evenly over the edges
+        return damping * mass / _f32(torch.clamp(degrees, min=1))
+
+    def priority_value(pending):
+        # the reference's raw metric, -log2 of the pending mass; the engine
+        # buckets it exactly through _pagerank_bucketize instead
+        return -torch.log2(torch.clamp(torch.abs(pending), min=2.0 ** -24))
+
+    return VertexProgram("pagerank", "float32", SUM, weighted, init, combine,
+                         priority_value, self_stabilizing=False,
+                         priority_scale=_PAGERANK_SCALE, aux_channels=2,
+                         init_aux=init_aux, push_eps=push_eps,
+                         bucketize=_pagerank_bucketize)
 
 
 PROGRAMS: dict[str, Callable[..., VertexProgram]] = {

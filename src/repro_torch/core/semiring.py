@@ -11,8 +11,9 @@ rounding direction and the SpMV kernel's reduce all derive from it.
   * ``MAX`` — max-monotone programs (widest-path, max-label propagation);
     payloads are non-negative, so the identity is ``-1`` / ``0.0``;
   * ``OR``  — boolean saturation (reachability): ``max`` over {0, 1};
-  * ``SUM`` — scatter-add (the ``plus_times`` kernel form; push-mode
-    pagerank waits for its slice).  Not idempotent.
+  * ``SUM`` — scatter-add (the ``plus_times`` kernel form and push-mode
+    pagerank).  Not idempotent: a duplicated or replayed message changes
+    the sum, so its programs recover by a global checkpoint restore.
 
 Every ``scatter`` and ``segment_reduce`` here works along the LAST axis
 with any number of leading batch axes, so the engine scatters all shards

@@ -29,9 +29,10 @@ _c = ctypes
 # exported C functions of each source: name -> (argtypes, restype)
 SIGNATURES = {
     "semiring_spmv": {
-        "spmv_partials_launch": ([_c.c_int, _c.c_int, _c.c_int, _c.c_void_p,
+        "spmv_partials_launch": ([_c.c_int, _c.c_int, _c.c_int, _c.c_int,
                                   _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                                  _c.c_int, _c.c_void_p], _c.c_int),
+                                  _c.c_void_p, _c.c_int, _c.c_void_p],
+                                 _c.c_int),
         "cuda_error_string": ([_c.c_int], _c.c_char_p),
     },
 }

@@ -154,20 +154,22 @@ def frontier_pull_step(values: torch.Tensor, pg: PulledGraph, *,
 # ======================================================================
 def pagerank(graph: ShardedGraph, *, damping: float = 0.85,
              iters: int = 30, dangling: str = "redistribute",
-             device: DeviceLike = None) -> torch.Tensor:
+             device: DeviceLike = None,
+             pulled: Optional[PulledGraph] = None) -> torch.Tensor:
     """PageRank in the paper's §3.3-safe pull-mode formulation (the dense
     oracle for the engine's push-mode program): rank_v = (1-d) + d * sum_in
     rank_u / deg_u, one ``plus_times`` pull step per iteration.
 
     ``dangling``: ``"redistribute"`` (a dangling vertex's damped mass
     teleports uniformly; ranks sum to 1) or ``"absorb"`` (it evaporates —
-    the push program's fixpoint).
+    the push program's fixpoint).  ``pulled``: ``graph``'s pulled stream,
+    when the caller has built it already.
     """
     if dangling not in ("redistribute", "absorb"):
         raise ValueError(f"dangling must be 'redistribute' or 'absorb', "
                          f"got {dangling!r}")
     dev = resolve_device(device)
-    pg = build_pulled_graph(graph).to(dev)
+    pg = (pulled or build_pulled_graph(graph)).to(dev)
     n, n_real = pg.num_vertices, graph.num_real_vertices
     deg_raw = graph.degrees().reshape(-1).astype(np.float32)
     deg_raw = np.pad(deg_raw, (0, n - len(deg_raw)))[:n]
@@ -188,16 +190,18 @@ def pagerank(graph: ShardedGraph, *, damping: float = 0.85,
 
 # ======================================================================
 def bsp_connected_components(graph: ShardedGraph, *, max_rounds: int = 10000,
-                             device: DeviceLike = None):
+                             device: DeviceLike = None,
+                             pulled: Optional[PulledGraph] = None):
     """Synchronous full-frontier CC (the Pregel-equivalent BSP baseline).
 
     Runs min-label propagation rounds until fixpoint; each round is one
     kernel-backed pull step over ALL edges — the superstep model the
     paper compares against (O(diameter) rounds, all edges touched per
     round).  Returns ``(labels [num_real_vertices] int32 tensor,
-    {"rounds", "messages"})``."""
+    {"rounds", "messages"})``.  ``pulled``: ``graph``'s pulled stream, when
+    the caller has built it already."""
     dev = resolve_device(device)
-    pg = build_pulled_graph(graph).to(dev)
+    pg = (pulled or build_pulled_graph(graph)).to(dev)
     n = graph.num_vertices
     values = torch.arange(n, dtype=torch.int32, device=dev)
     rounds = 0

@@ -14,6 +14,10 @@ propagation, (max, min) for widest path, (or, .) for reachability and
 (+, *) for PageRank.  Lanes no edge hits hold the identity; ``dst = -1``
 marks padding.  Every idempotent reduce is one of ``core.semiring``'s
 Aggregators, so kernel names and engine programs cannot drift.
+``use_mxu=True`` selects the tensor-core form of ``plus_times`` (the JAX
+package's one-hot matmul on the TPU's matrix unit): the same sum, as a
+one-hot ``[128, 512]`` matrix times the edge values split into three
+bf16 terms, on ``mma.sync`` with fp32 accumulation.
 
 ``spmv_partials`` launches the kernel for CUDA tensors and takes the plain
 version (``kernels/ref.py``) only for tensors on the CPU; there is no
@@ -62,9 +66,9 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
 
     edge_dst_local: int32 destination index within the block's tile
     (-1 = padding).  ``edge_weights`` may be None (unit weights).
-    ``use_mxu`` selects the JAX package's one-hot matmul form of
-    ``plus_times``; its tensor-core port is still open, so on the card it
-    raises, while the CPU's plain version computes the same sum.
+    ``use_mxu`` selects the tensor-core form of ``plus_times`` (float32
+    values; other semirings ignore it, as in the JAX package); on the CPU
+    the plain version computes the same sum.
     """
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}; valid: {SEMIRINGS}")
@@ -78,13 +82,13 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
                                      semiring=semiring)
     if edge_vals.device.type != "cuda":
         raise ValueError(f"no kernel for device {edge_vals.device}")
-    if use_mxu:
-        raise NotImplementedError(
-            "the tensor-core (use_mxu=True) form of plus_times is not "
-            "ported yet (ROADMAP queue 2)")
+    mxu = use_mxu and semiring == "plus_times"
     dtype = edge_vals.dtype
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"edge_vals must be int32 or float32, got {dtype}")
+    if mxu and dtype != torch.float32:
+        raise TypeError(f"the tensor-core form of plus_times takes float32 "
+                        f"values, got {dtype}")
     if edge_dst_local.dtype != torch.int32 or \
             edge_dst_local.shape != edge_vals.shape:
         raise TypeError("edge_dst_local must be int32 of the same shape as "
@@ -115,7 +119,7 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
     # does not reach, so the launch names its device itself
     stream = torch.cuda.current_stream(index).cuda_stream
     err = lib.spmv_partials_launch(
-        index, _SEMIRING_CODE[semiring], _DTYPE_CODE[dtype],
+        index, _SEMIRING_CODE[semiring], _DTYPE_CODE[dtype], int(mxu),
         ctypes.c_void_p(edge_vals.data_ptr()),
         ctypes.c_void_p(edge_dst_local.data_ptr()),
         ctypes.c_void_p(edge_weights.data_ptr()
@@ -124,14 +128,15 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"semiring_spmv kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    key = f"{semiring}/{str(dtype).replace('torch.', '')}"
+    key = (f"{semiring}{'_mxu' if mxu else ''}/"
+           f"{str(dtype).replace('torch.', '')}")
     spmv_partials.launches_by_form[key] = \
         spmv_partials.launches_by_form.get(key, 0) + 1
     return out
 
 
-# launches of the CUDA kernel in this process per "semiring/dtype" form
-# (CPU calls never count)
+# launches of the CUDA kernels in this process per "semiring/dtype" form,
+# the tensor-core form as "plus_times_mxu/float32" (CPU calls never count)
 spmv_partials.launches_by_form = {}
 
 

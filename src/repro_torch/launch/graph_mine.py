@@ -2,14 +2,16 @@
 
 Counterpart of ``repro.launch.graph_mine`` with the same options, plus
 ``--device`` (default ``cuda``).  Runs the propagation phase to
-convergence and the merger phase; writes the output table and the
-metrics.  The options of slices not ported yet (fault injection,
-crowded-cluster emulation, the async schedule) exit non-zero naming the
-missing piece.
+convergence, with optional rolling shard failures, and the merger phase;
+writes the output table and the metrics.  The options of slices not
+ported yet (crowded-cluster emulation, the async schedule) exit non-zero
+naming the missing piece.
 
   python -m repro_torch.launch.graph_mine --config asymp_cc
   python -m repro_torch.launch.graph_mine --config asymp_sssp --out /tmp/sssp.tsv
   python -m repro_torch.launch.graph_mine --config asymp_cc --reduced --device cpu
+  python -m repro_torch.launch.graph_mine --config asymp_pagerank \
+      --failures 0.5 --device cpu   # checkpoint-restore recovery (SUM)
 """
 from __future__ import annotations
 
@@ -27,11 +29,10 @@ from repro_torch.core import engine as E
 from repro_torch.core import graph as G
 from repro_torch.core import merger
 from repro_torch.core import programs as PR
+from repro_torch.core.faults import FaultPlan
 
 # options of later slices: flag -> what is missing
 _UNPORTED = {
-    "failures": "--failures needs fault injection and recovery "
-                "(ROADMAP queue 1, item 7)",
     "latency_profile": "--latency-profile needs the crowded-cluster "
                        "emulation (ROADMAP queue 1, item 8)",
     "slowdown": "--slowdown needs the crowded-cluster emulation "
@@ -54,7 +55,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--source", type=int, default=None,
                     help="source vertex for single-source programs")
     ap.add_argument("--failures", type=float, default=0.0,
-                    help="(not ported) fraction of shards to fail")
+                    help="fraction of shards to fail (0.5/1.0/2.0)")
     ap.add_argument("--priority", default=None)
     ap.add_argument("--enforce", type=float, default=None)
     ap.add_argument("--latency-profile", default=None,
@@ -80,10 +81,8 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    # --failures 0 (the default) is a run without a fault plan
     missing = [msg for flag, msg in _UNPORTED.items()
-               if getattr(args, flag) is not None
-               and not (flag == "failures" and args.failures == 0)]
+               if getattr(args, flag) is not None]
     if args.schedule == "async":
         missing.append("--schedule async needs the async schedule "
                        "(ROADMAP queue 1, item 9)")
@@ -139,9 +138,12 @@ def main(argv=None) -> None:
     print(f"[graph_mine] built CSR in {time.time() - t0:.1f}s "
           f"({graph.num_edges} directed edges after symmetrize)")
 
+    plan = (FaultPlan(fail_fraction=args.failures, start_tick=4, every=6)
+            if args.failures > 0 else None)
     t0 = time.time()
     try:
         state, totals = E.run_to_convergence(cfg, graph=graph, prog=prog,
+                                             fault_plan=plan,
                                              collect_log=True,
                                              device=device)
     except NotImplementedError as e:
@@ -164,6 +166,12 @@ def main(argv=None) -> None:
         summary = f"components={len(np.unique(out))}"
     elif cfg.algorithm == "reachability":
         summary = f"reached={int(np.sum(out))}"
+    elif cfg.algorithm == "pagerank":
+        # unnormalized ranks: mass/n == 1 iff no probability leaked at
+        # degree-0 vertices (the push program's absorb convention)
+        out_f = out.astype(np.float64)
+        summary = (f"mass={out_f.sum() / len(out):.4f};"
+                   f"top={int(out_f.argmax())}")
     else:  # distance/width-valued programs: unreached = the identity
         out_f = out.astype(np.float64)
         reached = np.asarray(prog.aggregator.improves(out_f,

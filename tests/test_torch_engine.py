@@ -29,6 +29,7 @@ from repro.dist import exchange as JX  # noqa: E402
 from repro_torch.configs import asymp_graphs as t_cfgs  # noqa: E402
 from repro_torch.configs.base import GraphConfig as TCfg  # noqa: E402
 from repro_torch.core import engine as TE  # noqa: E402
+from repro_torch.core import faults as TF  # noqa: E402
 from repro_torch.core import graph as TG  # noqa: E402
 from repro_torch.core import merger as TM  # noqa: E402
 from repro_torch.core import programs as TP  # noqa: E402
@@ -176,8 +177,8 @@ def test_program_parity(name):
 
 
 def test_program_registry():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.get_program("pagerank")
+    assert set(TP.PROGRAMS) == set(JP.PROGRAMS)
+    assert TP.get_program("pagerank", damping=0.9).aux_channels == 2
     with pytest.raises(ValueError, match="registered"):
         TP.get_program("nope")
     with pytest.raises(TypeError):
@@ -240,12 +241,7 @@ def _params_match(jep, tep):
 @pytest.mark.parametrize("name", sorted(j_cfgs.CONFIGS))
 def test_derive_params_parity(name):
     jc, tc = j_cfgs.CONFIGS[name], t_cfgs.CONFIGS[name]
-    jp = JP.get_program(jc)
-    if jc.algorithm == "pagerank":
-        with pytest.raises(NotImplementedError):
-            TP.get_program(tc)
-        return
-    tp = TP.get_program(tc)
+    jp, tp = JP.get_program(jc), TP.get_program(tc)
     sizes = dict(num_shards=jc.num_shards, vs=2048, es=9000,
                  num_vertices=jc.num_shards * 2048)
     _params_match(JE.derive_params(jc, prog=jp, **sizes),
@@ -380,7 +376,9 @@ def test_bench_speed_smoke_counts():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(fault_plan=object()), "fault injection"),
+    # a plan's slowdowns need the crowded ring; its kills are ported
+    (dict(fault_plan=TF.FaultPlan(0.5, slow_fraction=0.5, slow_delay=2)),
+     "fault injection"),
     (dict(latency=object()), "crowded"),
     (dict(schedule="async"), "async"),
 ])

@@ -1,5 +1,7 @@
-"""The port on the card: the CUDA semiring SpMV kernel against its plain
-version, and the main path against its CPU run.
+"""The port on the card: the CUDA semiring SpMV kernels (the scalar forms
+and the tensor-core ``plus_times``) against their plain version, the main
+path against its CPU run, pagerank against its verdict and fault recovery
+against its CPU run.
 
 Every test carries the ``gpu`` marker and skips on a host without a CUDA
 card (decided in the ``cuda`` fixture, not at import).  On a machine with
@@ -14,7 +16,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import GraphConfig  # noqa: E402
 from repro_torch.core import engine as E  # noqa: E402
+from repro_torch.core import faults as F  # noqa: E402
 from repro_torch.core import graph as G  # noqa: E402
+from repro_torch.core import merger as M  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import semiring_spmv as K  # noqa: E402
@@ -88,10 +92,33 @@ def test_all_padding_block(cuda):
                                             semiring="min")).all())
 
 
+@pytest.mark.parametrize("n_blocks", [1, 3, 8])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_mxu_form_matches_plain(cuda, n_blocks, weighted):
+    """The tensor-core plus_times: within rtol/atol 1e-5 of the plain
+    version (fp32 accumulation of an exact three-term bf16 split), counted
+    under its own key."""
+    vals, dst, w = _inputs(10 + n_blocks, n_blocks * K.EDGE_BLOCK,
+                           torch.float32, cuda)
+    w = w if weighted else None
+    before = K.spmv_partials.launches_by_form.get("plus_times_mxu/float32", 0)
+    kp = K.spmv_partials(vals, dst, w, semiring="plus_times", use_mxu=True)
+    torch.cuda.synchronize()
+    assert K.spmv_partials.launches_by_form["plus_times_mxu/float32"] == \
+        before + 1
+    _check(kp, R.spmv_partials_ref(vals, dst, w, semiring="plus_times"),
+           "plus_times")
+    pad_d = torch.full_like(dst, -1)
+    assert torch.equal(K.spmv_partials(vals, pad_d, w, semiring="plus_times",
+                                       use_mxu=True),
+                       torch.zeros((n_blocks, K.TILE), device=cuda))
+
+
 def test_wrapper_refuses(cuda):
     vals, dst, w = _inputs(0, K.EDGE_BLOCK, torch.float32, cuda)
-    with pytest.raises(NotImplementedError):
-        K.spmv_partials(vals, dst, w, semiring="plus_times", use_mxu=True)
+    with pytest.raises(TypeError):  # the tensor-core form is float32 only
+        K.spmv_partials(vals.int(), dst, None, semiring="plus_times",
+                        use_mxu=True)
     with pytest.raises(ValueError):
         K.spmv_partials(vals[:100], dst[:100], None, semiring="min")
     with pytest.raises(TypeError):
@@ -114,3 +141,43 @@ def test_main_path_matches_cpu(cuda):
         assert t_gpu[k] == t_cpu[k], k
     for f in ("values", "active", "cursor"):
         assert torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f))
+
+
+def test_pagerank_verdict_on_card(cuda):
+    """Push-mode pagerank on the card: its float scatter-add is atomic, so
+    the bits may move from the CPU run's; the verdict holds either way."""
+    cfg = GraphConfig(name="t-pr", algorithm="pagerank", num_vertices=512,
+                      avg_degree=5, generator="rmat", num_shards=4,
+                      enforce_fraction=0.5, checkpoint_every=4)
+    g = G.build_sharded_graph(cfg)
+    oracle = ops.pagerank(g, damping=0.85, iters=80, dangling="absorb",
+                          device="cpu").numpy().astype(np.float64)
+    plan = F.FaultPlan(0.5, start_tick=4, every=6)
+    for fault_plan in (None, plan):
+        state, totals = E.run_to_convergence(cfg, graph=g, device=cuda,
+                                             fault_plan=fault_plan)
+        assert totals["converged"] and totals["replayed"] == 0
+        ranks = state.values.cpu().numpy().reshape(-1)[: g.num_real_vertices]
+        assert np.abs(ranks / g.num_real_vertices - oracle).sum() < 1e-3
+        assert abs(M.mass_balance(state, g) - 1.0) < 1e-5
+        assert bool((state.aux[:, 1] == 0).all())
+        assert bool((state.aux[:, 0] <= 1e-5).all())
+    assert totals["failures"] > 0
+
+
+def test_cc_faults_match_cpu(cuda):
+    """Replay recovery on the card: CC is integer and idempotent, so the
+    run under rolling kills equals the CPU run exactly."""
+    cfg = GraphConfig(name="t", algorithm="cc", num_vertices=1024,
+                      avg_degree=8, generator="rmat", num_shards=4,
+                      priority="log", enforce_fraction=0.5)
+    g = G.build_sharded_graph(cfg)
+    plan = F.FaultPlan(1.0, start_tick=4, every=6)
+    s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda,
+                                        fault_plan=plan)
+    s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu",
+                                        fault_plan=plan)
+    for k in ("ticks", "sent", "failures", "replayed", "converged"):
+        assert t_gpu[k] == t_cpu[k], k
+    assert t_gpu["failures"] == 4 and t_gpu["replayed"] > 0
+    assert torch.equal(s_gpu.values.cpu(), s_cpu.values)

@@ -60,8 +60,34 @@ def test_graph_mine_tsv_identical_to_jax(tmp_path, config):
         assert jm[k] == tm[k], k
 
 
+@pytest.mark.parametrize("config", ["asymp_cc", "asymp_pagerank"])
+def test_graph_mine_failures_tsv_identical_to_jax(tmp_path, config):
+    """``--failures 0.5``: replay recovery for CC, checkpoint restore for
+    pagerank; the port's CPU run is bitwise the JAX package's, so the
+    tables are byte-identical and the totals equal."""
+    outs = {}
+    for pkg, extra in (("repro", ()), ("repro_torch", ("--device", "cpu"))):
+        tsv, met = tmp_path / f"{pkg}.tsv", tmp_path / f"{pkg}.json"
+        proc = _run(f"{pkg}.launch.graph_mine", "--config", config,
+                    "--reduced", "--failures", "0.5", "--out", str(tsv),
+                    "--metrics", str(met), *extra, cwd=tmp_path)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        merger_line = [ln for ln in proc.stdout.splitlines()
+                       if "merger" in ln]
+        outs[pkg] = (tsv.read_bytes(), json.loads(met.read_text()),
+                     merger_line)
+    assert outs["repro"][0] == outs["repro_torch"][0]
+    assert outs["repro"][2] == outs["repro_torch"][2]  # mass=...;top=...
+    jm, tm = outs["repro"][1], outs["repro_torch"][1]
+    for k in ("ticks", "sent", "accepted", "fetched", "failures", "replayed",
+              "converged", "log"):
+        assert jm[k] == tm[k], k
+    assert tm["failures"] == 2
+    assert (tm["replayed"] == 0) == (config == "asymp_pagerank")
+
+
 @pytest.mark.parametrize("argv,missing", [
-    (["--failures", "0.5"], "fault injection"),
+    (["--failures", "0.5", "--schedule", "async"], "async"),
     (["--latency-profile", "stragglers"], "crowded"),
     (["--slowdown", "0.5"], "crowded"),
     (["--link-delay", "2"], "crowded"),
@@ -69,7 +95,7 @@ def test_graph_mine_tsv_identical_to_jax(tmp_path, config):
     (["--schedule", "async"], "async"),
     (["--async-seed", "3"], "async"),
     (["--config", "asymp_cc_crowded"], "crowded"),
-    (["--config", "asymp_pagerank"], "push mode"),
+    (["--config", "asymp_pagerank", "--slowdown", "0.5"], "crowded"),
 ])
 def test_graph_mine_refuses_unported(argv, missing, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -112,6 +138,9 @@ def test_port_runs_without_jax_or_repro(tmp_path):
         "from repro_torch.launch import graph_mine\n"
         "graph_mine.main(['--config', 'asymp_cc', '--reduced', "
         "'--device', 'cpu'])\n"
+        "graph_mine.main(['--config', 'asymp_pagerank', '--reduced', "
+        "'--failures', '0.5', '--device', 'cpu'])\n"
+        "import repro_torch.core.faults\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -135,7 +164,7 @@ def _imported_roots(path):
 
 def test_port_sources_import_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 10 and PORT / "core" / "faults.py" in files
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f
