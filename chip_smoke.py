@@ -7,20 +7,25 @@ Phases, each printed as it ends with its seconds; any failed check exits
 non-zero:
 
   1. environment: torch, the card, ``nvidia-smi`` name and power limit;
-  2. build: compile ``csrc/semiring_spmv.cu`` with nvcc, print ptxas' report;
+  2. build: compile ``csrc/semiring_spmv.cu`` with nvcc, print ptxas'
+     registers, shared memory and spills per kernel;
   3. the kernels against their plain PyTorch version on the same inputs —
      every (semiring, dtype) of the sweep and the tensor-core
-     ``plus_times`` at 1/3/8 blocks, the all-padding block, the max clamp,
-     and the RMAT 2^18 pull stream of the main path; idempotent semirings
-     exactly, ``plus_times`` (both forms) within rtol/atol 1e-5 (their
-     sum orders differ) — then each form's time there beside the plain
-     version's, one ``scatter_reduce_`` call's and its bound;
+     ``plus_times`` at 1/3/8 random-dst blocks (the scalar kernel's
+     unsorted path), the all-padding block, the max clamp, the RMAT 2^18
+     pull stream of the main path and the ``asymp_pagerank`` (RMAT 2^14)
+     stream of the oracle (the sorted path); idempotent semirings exactly,
+     ``plus_times`` (both forms) within rtol/atol 1e-5 (their sum orders
+     differ), and two launches of each ``plus_times`` form on the RMAT
+     2^18 stream bitwise equal — then each form's device time there beside
+     the plain version's, one ``scatter_reduce_`` call's and its bound;
   4. the main path at full size: ``asymp_cc_large`` (RMAT 2^18, 8 shards)
      to convergence on the prioritized engine, the kernel-backed BSP
      baseline, and the dense pagerank oracle (the kernel's plus_times
      form); engine labels must equal BSP labels, and the kernel's launches
      must equal the BSP rounds and the pagerank iterations; then a
-     profiled window of engine ticks (device time by op, busy share);
+     profiled BSP run and a profiled window of engine ticks (device time
+     by op, busy share);
   5. the ``benchmarks/bench_speed.py --smoke`` configs (RMAT 2^12): the
      fixpoints against the union-find and labelprop oracles, and the
      tick/message counts beside the JAX package's committed baselines;
@@ -54,6 +59,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # non-tensor float32; int32 compares taken alike
 H100_BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor cores
+SLEEP_CYCLES_PER_S = 1.98e9  # the H100 SXM's top SM clock: a sleep of this
+# many cycles lasts at least one second
 SWEEP = [("min", "int32"), ("min", "float32"), ("min_plus", "float32"),
          ("max", "int32"), ("max", "float32"), ("max_min", "float32"),
          ("or", "int32"), ("plus_times", "float32")]
@@ -82,12 +89,23 @@ def say(phase: str, **kw) -> None:
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events).
+
+    A sleep kernel holds the stream for twice the host's measured time to
+    enqueue ``reps`` calls, so the launches run back to back and the time
+    is the device's, not the host's launch rate (a kernel of a few
+    microseconds is faster than its Python wrapper)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -115,11 +133,72 @@ def spmv_inputs(np, torch, rng, n, dtype, dst=None):
     return put(vals), put(dst), put(w)
 
 
+def device_profile(torch, fn) -> dict:
+    """Run ``fn`` once under the profiler: wall time, device busy time and
+    share, and the ten ops with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(row):
+        return getattr(row, "self_device_time_total",
+                       getattr(row, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    # kernel rows sum to the device's busy time; op rows (aten::*) carry
+    # the same time again, attributed to the op that launched it
+    rows = prof.key_averages()
+    on_card = [r for r in rows if r.device_type == DeviceType.CUDA]
+    by_op = sorted((r for r in rows if r.device_type != DeviceType.CUDA),
+                   key=device_us, reverse=True)
+    busy_us = sum(device_us(r) for r in on_card)
+    return {"window_s": window_s, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": (busy_us / 1e6 / window_s if busy_us
+                                  else "not measured"),
+            "top_ops_device_ms": [(r.key, device_us(r) / 1e3, r.count)
+                                  for r in by_op[:10]]}
+
+
+def ptxas_summary(report: str, semirings) -> dict:
+    """nvcc's ``-Xptxas -v`` report as {kernel form: registers, shared
+    memory and spill bytes}."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            t = re.search(r"spmv_partials_kernelILi(\d)E([if])E", mangled)
+            name = (f"{semirings[int(t.group(1))]}/"
+                    f"{'int32' if t.group(2) == 'i' else 'float32'}" if t
+                    else "plus_times_mxu/float32" if "mma" in mangled
+                    else mangled)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out[name].update(registers=int(m.group(1)),
+                             smem_bytes=int(m.group(2) or 0))
+    return out
+
+
 def bound_of(semiring, n, n_blocks, weighted, mxu=False):
-    """Least time for one call: each input read once, the output written
-    once, against one combine and one reduce per edge (the tensor-core
-    form: its issued bf16 products, 2 x 128 x 512 x 8 per block)."""
-    nbytes = n * (4 + 4 + (4 if weighted else 0)) + n_blocks * 128 * 4
+    """Least time for one call: each input the function reads once (min,
+    max and or ignore the weights), the output written once, against one
+    combine and one reduce per edge (the tensor-core form: its issued bf16
+    products, 2 x 128 x 512 x 8 per block)."""
+    reads_w = weighted and semiring in ("min_plus", "max_min", "plus_times")
+    nbytes = n * (4 + 4 + (4 if reads_w else 0)) + n_blocks * 128 * 4
     if mxu:
         t_ops = n_blocks * 2 * 128 * 512 * 8 / H100_BF16_TENSOR_OPS_PER_S * 1e3
     else:
@@ -191,10 +270,7 @@ def main() -> int:
     _build.load("semiring_spmv")
     say("build", seconds=round(built["seconds"], 3), cached=built["cached"],
         library=os.path.relpath(built["path"], ROOT))
-    for line in built["report"].splitlines():
-        if "ptxas" in line and ("Used" in line or "spill" in line
-                                or "Compiling" in line):
-            print(f"[chip_smoke] ptxas: {line.strip()}", flush=True)
+    say("ptxas", kernels=ptxas_summary(built["report"], K.SEMIRINGS))
 
     phase_s["environment_and_build"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -266,24 +342,40 @@ def main() -> int:
         pulled_edges=n_edges, blocks=n_blocks,
         build_sharded_graph_s=round(build_graph_s, 3),
         build_pulled_graph_s=round(build_pulled_s, 3))
+    # the pagerank phase's graph; its stream is the one the oracle pulls
+    cfg_pr = get_graph_config("asymp_pagerank")
+    g_pr = G.build_sharded_graph(cfg_pr)
+    pg_pr = ops.build_pulled_graph(g_pr)
+    streams = {"RMAT 2^18": pg.edge_dst_local,
+               "RMAT 2^14": pg_pr.edge_dst_local}
 
     forms = []
-    dst_main = pg.edge_dst_local
-    # the BSP path's own form first: min on int32 labels, no weights; the
-    # tensor-core plus_times last
-    for semiring, dtype, weighted, mxu in [("min", "int32", False, False)] + [
-            (s, d, True, False) for s, d in SWEEP] + [
-            ("plus_times", "float32", True, True)]:
-        v, d, w = spmv_inputs(np, torch, rng, n_edges, dtype, dst=dst_main)
+    # the main path's forms first: BSP's min on int32 labels and the
+    # oracle's plus_times, both without weights; then the weighted sweep,
+    # the tensor-core plus_times, and the oracle's form on its 2^14 stream
+    for semiring, dtype, weighted, mxu, stream in [
+            ("min", "int32", False, False, "RMAT 2^18"),
+            ("plus_times", "float32", False, False, "RMAT 2^18")] + [
+            (s, d, True, False, "RMAT 2^18") for s, d in SWEEP] + [
+            ("plus_times", "float32", True, True, "RMAT 2^18"),
+            ("plus_times", "float32", False, False, "RMAT 2^14")]:
+        dst_s = streams[stream]
+        n_e, n_b = len(dst_s), len(dst_s) // 512
+        v, d, w = spmv_inputs(np, torch, rng, n_e, dtype, dst=dst_s)
         w = w if weighted else None
         kp = K.spmv_partials(v, d, w, semiring=semiring, use_mxu=mxu)
         rp = R.spmv_partials_ref(v, d, w, semiring=semiring)
         torch.cuda.synchronize()
-        compare(semiring, kp, rp, f"{dtype}, RMAT 2^18 stream"
-                f"{', tensor cores' if mxu else ''}", mxu)
+        where = f"{dtype}, {stream} stream{', tensor cores' if mxu else ''}"
+        compare(semiring, kp, rp, where, mxu)
         err = max_abs_err(torch, kp, rp)
         vs_scalar = (max_abs_err(torch, kp, K.spmv_partials(
             v, d, w, semiring=semiring)) if mxu else None)
+        repeatable = None
+        if semiring == "plus_times" and stream == "RMAT 2^18":
+            repeatable = torch.equal(kp, K.spmv_partials(
+                v, d, w, semiring=semiring, use_mxu=mxu))
+            check(repeatable, f"two launches of plus_times ({where}) differ")
         ms = cuda_ms(torch, lambda: K.spmv_partials(
             v, d, w, semiring=semiring, use_mxu=mxu), 20)
         plain_ms = cuda_ms(torch, lambda: R.spmv_partials_ref(
@@ -294,22 +386,24 @@ def main() -> int:
         ident = K._identity(semiring, v.dtype)
         cand = K._combine(semiring, v, (w if w is not None
                                         else torch.ones_like(v)).to(v.dtype))
-        block = torch.arange(n_edges, device=dev) // 512
-        seg = torch.where(d >= 0, block * 128 + d.long(), n_blocks * 128)
+        block = torch.arange(n_e, device=dev) // 512
+        seg = torch.where(d >= 0, block * 128 + d.long(), n_b * 128)
         reduce = {"min": "amin", "max": "amax", "or": "amax",
                   "sum": "sum"}[agg.name]
-        lib_out = torch.full((n_blocks * 128 + 1,), ident, dtype=v.dtype,
+        lib_out = torch.full((n_b * 128 + 1,), ident, dtype=v.dtype,
                              device=dev)
         library_ms = cuda_ms(torch, lambda: lib_out.scatter_reduce_(
             0, seg, cand, reduce=reduce, include_self=True), 5)
-        check(torch.equal(lib_out[:-1].view(n_blocks, 128), kp)
+        check(torch.equal(lib_out[:-1].view(n_b, 128), kp)
               or semiring == "plus_times", f"library yardstick disagrees "
                                            f"({semiring})")
-        bound_ms, bound_by, nbytes = bound_of(semiring, n_edges, n_blocks,
-                                              weighted, mxu)
+        bound_ms, bound_by, nbytes = bound_of(semiring, n_e, n_b, weighted,
+                                              mxu)
         form = {"semiring": semiring, "dtype": dtype, "weights": weighted,
-                "tensor_cores": mxu, "max_abs_err_vs_scalar": vs_scalar,
-                "blocks": n_blocks, "max_abs_err": err, "ms": ms,
+                "tensor_cores": mxu, "stream": stream,
+                "max_abs_err_vs_scalar": vs_scalar,
+                "bitwise_repeatable": repeatable,
+                "blocks": n_b, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
         forms.append(form)
@@ -357,43 +451,27 @@ def main() -> int:
           and abs(float(ranks.sum()) - 1.0) < 1e-3,
           f"pagerank mass {float(ranks.sum())} is not 1")
     cc_ticks = totals["ticks"]
-    del state, bsp_labels, ranks, pg_dev
+    del state, bsp_labels, ranks
 
-    # ---- 4b. where an engine tick's time goes (a short profiled window) ----
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    # ---- 4b. where a BSP run's and an engine tick's time goes (profiled
+    # after the launch counts were read) ----
+    say("bsp_profile", **device_profile(torch, lambda: (
+        ops.bsp_connected_components(graph, device=dev, pulled=pg_dev))))
+    del pg_dev
     sess = E.EngineSession(cfg_large, graph=graph, device=dev)
     for _ in range(PROFILE_WARM_TICKS):
         sess.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def ticks():
         for _ in range(PROFILE_TICKS):
             sess.step()
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
 
-    def device_us(row):
-        return getattr(row, "self_device_time_total",
-                       getattr(row, "self_cuda_time_total", 0.0))
-
-    # kernel rows sum to the device's busy time; op rows (aten::*) carry
-    # the same time again, attributed to the op that launched it
-    rows = prof.key_averages()
-    on_card = [r for r in rows if r.device_type == DeviceType.CUDA]
-    by_op = sorted((r for r in rows if r.device_type != DeviceType.CUDA),
-                   key=device_us, reverse=True)
-    busy_us = sum(device_us(r) for r in on_card)
+    tick_profile = device_profile(torch, ticks)
     phase_s["main_path"] = time.perf_counter() - t_phase
     say("engine_tick_profile", ticks=f"{PROFILE_WARM_TICKS}.."
-        f"{PROFILE_WARM_TICKS + PROFILE_TICKS}",
-        window_s=window_s, device_busy_s=busy_us / 1e6,
-        device_busy_share=(busy_us / 1e6 / window_s if busy_us
-                           else "not measured"),
-        top_ops_device_ms=[(r.key, device_us(r) / 1e3, r.count)
-                           for r in by_op[:10]])
-    del sess, prof
+        f"{PROFILE_WARM_TICKS + PROFILE_TICKS}", **tick_profile)
+    del sess
 
     # ---- 5. bench_speed smoke configs against the oracles ----
     t_phase = time.perf_counter()
@@ -421,9 +499,7 @@ def main() -> int:
 
     # ---- 6. push-mode pagerank at asymp_pagerank ----
     t_phase = time.perf_counter()
-    cfg_pr = get_graph_config("asymp_pagerank")
-    g_pr = G.build_sharded_graph(cfg_pr)
-    pg_pr = ops.build_pulled_graph(g_pr).to(dev)
+    pg_pr = pg_pr.to(dev)
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -531,11 +607,11 @@ def main() -> int:
                      if not k.startswith("plus_times")),
                  worst["idempotent"])
     idem["forms"] = [f for f in forms[1:] if f["semiring"] != "plus_times"]
-    pt_form = next(f for f in forms if f["semiring"] == "plus_times"
-                   and not f["tensor_cores"])
-    pt = entry("spmv_partials[plus_times] (pagerank oracle)", pt_form,
+    pt = entry("spmv_partials[plus_times] (pagerank oracle)", forms[1],
                sum(path.get("plus_times/float32", 0) for path in paths),
                worst["plus_times"])
+    pt["forms"] = [f for f in forms[2:] if f["semiring"] == "plus_times"
+                   and not f["tensor_cores"]]
     mxu_form = next(f for f in forms if f["tensor_cores"])
     mxu = entry("spmv_partials[plus_times, use_mxu=True] (tensor cores; "
                 "pagerank pull step)", mxu_form,

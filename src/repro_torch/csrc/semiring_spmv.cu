@@ -12,25 +12,44 @@
 // aggregator's identity and the result is clamped at it (`tie`).
 // `plus_times` is a plain sum (no clamp; empty lanes are 0).
 //
-// Design.  One thread block per edge block, 128 threads, one output lane
-// each.  The block stages its 512 (dst, combine(v, w)) pairs in shared
-// memory with coalesced loads (thread t loads edges t, t+128, t+256,
-// t+384), then every thread scans all 512 pairs in edge order — each read
-// is a shared-memory broadcast, no bank conflicts — and reduces the ones
-// that hit its lane.  No atomics and no data-dependent order: the result
-// is deterministic, and `plus_times` sums in edge order, which keeps it
-// within 1e-5 of the plain version.  The TPU kernel's dense [512, 128]
-// compare/select grid becomes this per-lane scan; its sequential grid
-// becomes independent blocks (nothing is carried between them).
-//
-// Bound.  The data the call must move is 8 bytes per edge (value and
-// dst; 12 with weights) plus 512 bytes of output per block: 143 MB, about
-// 43 us at 3.35 TB/s, for the 31,018 blocks of an RMAT 2^18 pull.  The
-// scan instead issues 512 x 128 compare-selects per block, about 2.0e9 at
-// that size, so this first kernel is bound by the scan's instruction
-// issue, well above the bytes bound.  Shared-memory atomics, or a
-// segmented reduction over the already destination-sorted stream, would
-// bring it down to the bytes bound; that is a later change.
+// The scalar form (use_mxu = 0): a segmented reduction over the
+// destination-sorted stream.  Bound: the call must move 8 bytes per edge
+// (value and dst; 12 with the weights that min_plus, max_min and
+// plus_times read, while min, max and or ignore them) plus 512 bytes of
+// output per block, each read or written once: 143 MB for the 31,018
+// blocks of an RMAT 2^18 pull, 0.0427 ms at 3.35 TB/s (206 MB and
+// 0.0616 ms with weights).  The kernel is
+// built to stay on that bytes bound: it reads each byte once, with 16-byte
+// loads, and issues a few instructions per edge.
+//   * One 128-thread block per edge block.  Thread i loads edges 4i..4i+3
+//     as one 16-byte vector per array (coalesced, no shared staging),
+//     combines them and reduces the equal-dst runs among its four edges in
+//     edge order.
+//   * The stream's builder (kernels/ops.py::build_pulled_graph) sorts
+//     edges by destination and pads each tile's run to whole blocks, so
+//     within a block dst never decreases and padding (-1) sits at the
+//     tail.  Read as unsigned, -1 is a key past 127, so the whole block is
+//     non-decreasing.  A warp (128 edges) checks that with one __all_sync.
+//   * Sorted warp (the stream's case): a segmented inclusive scan over the
+//     warp's threads, keyed on each thread's last dst, merges only equal
+//     keys (5 __shfl_up_sync steps), so the thread where a run ends holds
+//     the run's reduction.  Each lane then has at most one run in the
+//     warp: the thread that ends it stores it to part[warp][lane], which
+//     starts at the identity; keys >= 128 (padding) are dropped.
+//   * Unsorted warp (any other input, e.g. random dst): the warp stages
+//     its 128 (dst, value) pairs in shared memory and each thread scans
+//     them in edge order for the 4 lanes it owns (t, t+32, t+64, t+96):
+//     deterministic, at most the old per-lane scan's work.
+//   * After one __syncthreads, thread t reduces part[0..3][t] in warp order,
+//     clamps at the identity (`tie`, not for plus_times) and writes out.
+// No atomics: every lane's reduction runs in a fixed order, so the result
+// is the same on every launch, and float min/max keep the NaN propagation
+// of Ops<float>.  (Shared-memory atomics would need CAS loops for float
+// min/max and would sum plus_times in an order that changes between runs.)
+// plus_times sums run-then-tree, not in edge order: each thread's run in
+// edge order, the scan's tree over threads, then the warps in order.  The
+// plain version sums in another order, so plus_times is held to rtol/atol
+// 1e-5 against it; the idempotent forms are exact.
 //
 // The tensor-core form of plus_times (use_mxu = 1).  The TPU kernel's
 // `use_mxu=True` branch (semiring_spmv.py lines 80-87) writes the same
@@ -67,7 +86,8 @@
 //
 // C interface: spmv_partials_launch sets the given device current, launches
 // on the given stream and returns cudaGetLastError(); it allocates nothing
-// and does not synchronise.
+// and does not synchronise.  The scalar form reads 16-byte vectors, so its
+// input pointers must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,33 +158,131 @@ template <typename T> struct __align__(8) Edge {
   T cand;
 };
 
+constexpr int WARPS = TILE / 32;                 // 4 warps of 128 edges each
+constexpr int PER_THREAD = EDGE_BLOCK / TILE;    // 4 consecutive edges
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T> struct Vec4;
+template <> struct Vec4<int> { using type = int4; };
+template <> struct Vec4<float> { using type = float4; };
+
+// one 16-byte load of p[0..3] (p is 16-byte aligned: the wrapper checks
+// the base pointers, and every thread's offset is a multiple of 4)
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ p, T (&x)[4]) {
+  const typename Vec4<T>::type v =
+      *reinterpret_cast<const typename Vec4<T>::type*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
 template <int S, typename T>
 __global__ void __launch_bounds__(TILE)
 spmv_partials_kernel(const T* __restrict__ vals, const int* __restrict__ dst,
                      const T* __restrict__ w, T* __restrict__ out) {
-  __shared__ Edge<T> edges[EDGE_BLOCK];
-  const long long base = (long long)blockIdx.x * EDGE_BLOCK;
-  const int lane = threadIdx.x;
+  __shared__ T part[WARPS][TILE];                     // per-warp lane results
+  __shared__ Edge<T> staged[WARPS][32 * PER_THREAD];  // unsorted warps only
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long e0 = (long long)blockIdx.x * EDGE_BLOCK + PER_THREAD * tid;
+
+  int d[PER_THREAD];
+  T c[PER_THREAD];
+  load4(dst + e0, d);
+  load4(vals + e0, c);
+  if (w != nullptr) {
+    T wt[PER_THREAD];
+    load4(w + e0, wt);
 #pragma unroll
-  for (int k = 0; k < EDGE_BLOCK / TILE; ++k) {
-    const int e = k * TILE + lane;
-    const T wt = w != nullptr ? w[base + e] : Ops<T>::one();
-    Edge<T> ed;
-    ed.dst = dst[base + e];
-    ed.cand = combine<S, T>(vals[base + e], wt);
-    edges[e] = ed;
+    for (int e = 0; e < PER_THREAD; ++e) c[e] = combine<S, T>(c[e], wt[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < PER_THREAD; ++e)
+      c[e] = combine<S, T>(c[e], Ops<T>::one());
+  }
+  // keys as unsigned: padding (-1) sorts after every lane, and any key
+  // >= TILE is dropped
+  unsigned k[PER_THREAD];
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) k[e] = (unsigned)d[e];
+
+  const T ident = identity<S, T>();
+  T* row = part[warp];
+  const unsigned prev_last = __shfl_up_sync(kFull, k[PER_THREAD - 1], 1);
+  const bool in_order = k[0] <= k[1] && k[1] <= k[2] && k[2] <= k[3] &&
+                        (lane == 0 || prev_last <= k[0]);
+  if (__all_sync(kFull, in_order)) {
+    // sorted warp: every key's edges are one run; the thread where it ends
+    // stores its reduction, so each row entry is written at most once
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) row[j * 32 + lane] = ident;
+    __syncwarp();
+    // runs among my four edges, in edge order: the head run (it may go on
+    // from the threads before), runs inside, and the tail run (it may go
+    // on into the threads after)
+    T acc = c[0], head = c[0];
+    bool uniform = true;  // my four edges are one run
+#pragma unroll
+    for (int e = 1; e < PER_THREAD; ++e) {
+      if (k[e] != k[e - 1]) {
+        if (uniform) head = acc;
+        else if (k[e - 1] < TILE) row[k[e - 1]] = acc;  // a run inside
+        uniform = false;
+        acc = c[e];
+      } else {
+        acc = reduce<S, T>(acc, c[e]);
+      }
+    }
+    // segmented inclusive scan of the tail runs over the warp: a thread
+    // whose tail key equals mine up to o lanes back is, in a sorted warp,
+    // in my run with every thread between
+    const unsigned key = k[PER_THREAD - 1];
+    T run = acc;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const T r = __shfl_up_sync(kFull, run, o);
+      const unsigned rk = __shfl_up_sync(kFull, key, o);
+      if (lane >= o && rk == key) run = reduce<S, T>(r, run);
+    }
+    const T prev_run = __shfl_up_sync(kFull, run, 1);
+    const unsigned next_first = __shfl_down_sync(kFull, k[0], 1);
+    if (!uniform) {  // my head run ends here
+      if (lane > 0 && prev_last == k[0]) head = reduce<S, T>(prev_run, head);
+      if (k[0] < TILE) row[k[0]] = head;
+    }
+    if ((lane == 31 || next_first != key) && key < TILE) row[key] = run;
+  } else {
+    // unsorted warp: a per-lane scan of the warp's 128 edges in edge order
+    Edge<T>* st = staged[warp];
+#pragma unroll
+    for (int e = 0; e < PER_THREAD; ++e) {
+      Edge<T> ed;
+      ed.dst = d[e];
+      ed.cand = c[e];
+      st[PER_THREAD * lane + e] = ed;
+    }
+    __syncwarp();
+    T acc[PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) acc[j] = ident;
+#pragma unroll 8
+    for (int e = 0; e < 32 * PER_THREAD; ++e) {
+      const Edge<T> ed = st[e];  // broadcast read
+#pragma unroll
+      for (int j = 0; j < PER_THREAD; ++j)
+        acc[j] = ed.dst == j * 32 + lane ? reduce<S, T>(acc[j], ed.cand) : acc[j];
+    }
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) row[j * 32 + lane] = acc[j];
   }
   __syncthreads();
 
-  const T ident = identity<S, T>();
-  T acc = ident;
-#pragma unroll 16
-  for (int e = 0; e < EDGE_BLOCK; ++e) {
-    const Edge<T> ed = edges[e];  // broadcast read
-    acc = ed.dst == lane ? reduce<S, T>(acc, ed.cand) : acc;
-  }
+  T acc = part[0][tid];
+#pragma unroll
+  for (int wi = 1; wi < WARPS; ++wi) acc = reduce<S, T>(acc, part[wi][tid]);
   if constexpr (S != PLUS_TIMES) acc = reduce<S, T>(acc, ident);  // tie
-  out[(long long)blockIdx.x * TILE + lane] = acc;
+  out[(long long)blockIdx.x * TILE + tid] = acc;
 }
 
 // halfword stride of one split row in shared memory: 264 words, so the

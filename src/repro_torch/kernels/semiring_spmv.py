@@ -14,10 +14,19 @@ propagation, (max, min) for widest path, (or, .) for reachability and
 (+, *) for PageRank.  Lanes no edge hits hold the identity; ``dst = -1``
 marks padding.  Every idempotent reduce is one of ``core.semiring``'s
 Aggregators, so kernel names and engine programs cannot drift.
-``use_mxu=True`` selects the tensor-core form of ``plus_times`` (the JAX
-package's one-hot matmul on the TPU's matrix unit): the same sum, as a
-one-hot ``[128, 512]`` matrix times the edge values split into three
-bf16 terms, on ``mma.sync`` with fp32 accumulation.
+
+The scalar kernel is a segmented reduction over the destination-sorted
+stream, bound by the bytes it reads: each thread loads four consecutive
+edges as 16-byte vectors, and a warp whose 128 dst never decrease (every
+block of ``ops.build_pulled_graph``'s stream) reduces each run with a
+shuffle scan and no atomics; any other warp scans its edges per lane.
+Both orders are fixed, so every launch gives the same bits; ``plus_times``
+sums run-then-tree, not in edge order, and is held to rtol/atol 1e-5
+against the plain version.  ``use_mxu=True`` selects the tensor-core form
+of ``plus_times`` (the JAX package's one-hot matmul on the TPU's matrix
+unit): the same sum, as a one-hot ``[128, 512]`` matrix times the edge
+values split into three bf16 terms, on ``mma.sync`` with fp32
+accumulation.
 
 ``spmv_partials`` launches the kernel for CUDA tensors and takes the plain
 version (``kernels/ref.py``) only for tensors on the CPU; there is no
@@ -105,6 +114,8 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
             raise ValueError("all inputs must be on one device")
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+        if not mxu and t.data_ptr() % 16:  # the scalar kernel's vector loads
+            raise ValueError("inputs must start on a 16-byte boundary")
 
     n_blocks = n // EDGE_BLOCK
     out = torch.empty((n_blocks, TILE), dtype=dtype, device=edge_vals.device)

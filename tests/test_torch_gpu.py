@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA semiring SpMV kernels (the scalar forms
-and the tensor-core ``plus_times``) against their plain version, the main
+"""The port on the card: the CUDA semiring SpMV kernels (the scalar forms,
+on random and on destination-sorted streams, and the tensor-core
+``plus_times``) against their plain version, the main
 path against its CPU run, pagerank against its verdict and fault recovery
 against its CPU run.
 
@@ -74,6 +75,88 @@ def test_kernel_matches_plain(cuda, semiring, dtype, n_blocks, weighted):
     assert _launches() == before + 1
     _check(kp, R.spmv_partials_ref(vals, dst, w, semiring=semiring),
            semiring)
+
+
+def _sorted_dst(name):
+    """dst streams on which every warp takes the kernel's sorted path (the
+    last case mixes in one warp that does not), as numpy int32."""
+    rng = np.random.default_rng(7)
+    eb = K.EDGE_BLOCK
+    pad = lambda a: np.concatenate(  # noqa: E731
+        [a, np.full(-len(a) % eb, -1)]).astype(np.int32)
+    if name == "rmat_pulled":
+        cfg = GraphConfig(name="t", algorithm="cc", num_vertices=1024,
+                          avg_degree=8, generator="rmat", num_shards=4)
+        return ops.build_pulled_graph(G.build_sharded_graph(cfg)) \
+            .edge_dst_local
+    if name == "one_lane":  # one run across all four warps
+        return np.full(eb, 77, np.int32)
+    if name == "hub":  # a run over three blocks, then the tile's other lanes
+        return pad(np.concatenate([np.full(1300, 5),
+                                   np.sort(rng.integers(6, K.TILE, 200))]))
+    if name == "tail_padding":  # the tile's last block is mostly padding
+        return pad(np.sort(rng.integers(0, K.TILE, eb + 7)))
+    # runs of 1-7 edges, so most 4-edge groups straddle a key change
+    runs = np.repeat(np.arange(K.TILE), rng.choice([1, 2, 3, 5, 6, 7], K.TILE))
+    if name == "straddle":
+        return pad(runs)
+    mixed = pad(runs[:eb])  # "mixed": warp 1 of the block is unsorted
+    mixed[128:256] = rng.permutation(mixed[128:256])
+    return mixed
+
+
+SORTED_CASES = ["rmat_pulled", "one_lane", "hub", "tail_padding", "straddle",
+                "mixed"]
+
+
+@pytest.mark.parametrize("case", SORTED_CASES)
+@pytest.mark.parametrize("semiring,dtype", SWEEP)
+@pytest.mark.parametrize("weighted", [True, False])
+def test_kernel_matches_plain_on_sorted_streams(cuda, case, semiring, dtype,
+                                                weighted):
+    """Destination-sorted blocks (the stream's own layout) take the
+    kernel's segmented scan: idempotent forms exactly, plus_times within
+    rtol/atol 1e-5 of the plain version."""
+    d = _sorted_dst(case)
+    vals, _, w = _inputs(11, len(d), dtype, cuda)
+    dst = torch.from_numpy(d).to(cuda)
+    w = w if weighted else None
+    before = _launches()
+    kp = K.spmv_partials(vals, dst, w, semiring=semiring)
+    torch.cuda.synchronize()
+    assert _launches() == before + 1
+    _check(kp, R.spmv_partials_ref(vals, dst, w, semiring=semiring),
+           semiring)
+
+
+@pytest.mark.parametrize("use_mxu", [False, True])
+@pytest.mark.parametrize("weighted", [True, False])
+def test_plus_times_is_deterministic(cuda, use_mxu, weighted):
+    """No atomics: two launches on the same sorted or unsorted input give
+    the same bits."""
+    sorted_d = torch.from_numpy(_sorted_dst("rmat_pulled")).to(cuda)
+    vals, rand_d, w = _inputs(12, len(sorted_d), torch.float32, cuda)
+    w = w if weighted else None
+    for dst in (sorted_d, rand_d):
+        a = K.spmv_partials(vals, dst, w, semiring="plus_times",
+                            use_mxu=use_mxu)
+        b = K.spmv_partials(vals, dst, w, semiring="plus_times",
+                            use_mxu=use_mxu)
+        assert torch.equal(a, b)
+
+
+def test_wrapper_refuses_misaligned_inputs(cuda):
+    """The scalar kernel reads 16-byte vectors: an input that does not
+    start on a 16-byte boundary raises, whichever input it is."""
+    vals, dst, w = _inputs(13, K.EDGE_BLOCK + 1, torch.float32, cuda)
+    args = [vals[:-1], dst[:-1], w[:-1]]
+    K.spmv_partials(*args, semiring="min")  # aligned: launches
+    for i, t in enumerate((vals, dst, w)):
+        bad = list(args)
+        bad[i] = t[1:]
+        assert bad[i].data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            K.spmv_partials(*bad, semiring="min")
 
 
 def test_max_clamps_at_identity(cuda):
