@@ -18,7 +18,10 @@ non-zero:
      ``plus_times`` (both forms) within rtol/atol 1e-5 (their sum orders
      differ), and two launches of each ``plus_times`` form on the RMAT
      2^18 stream bitwise equal — then each form's device time there beside
-     the plain version's, one ``scatter_reduce_`` call's and its bound;
+     the plain version's, one ``scatter_reduce_`` call's and its bound
+     (the tensor-core form weighted and unweighted at RMAT 2^18 and
+     unweighted at RMAT 2^14, the shape phase 6 launches, each with the
+     (k-step, M tile) pairs it issues);
   4. the main path at full size: ``asymp_cc_large`` (RMAT 2^18, 8 shards)
      to convergence on the prioritized engine, the kernel-backed BSP
      baseline, and the dense pagerank oracle (the kernel's plus_times
@@ -192,15 +195,16 @@ def ptxas_summary(report: str, semirings) -> dict:
     return out
 
 
-def bound_of(semiring, n, n_blocks, weighted, mxu=False):
+def bound_of(semiring, n, n_blocks, weighted, tile_steps=None):
     """Least time for one call: each input the function reads once (min,
     max and or ignore the weights), the output written once, against one
-    combine and one reduce per edge (the tensor-core form: its issued bf16
-    products, 2 x 128 x 512 x 8 per block)."""
+    combine and one reduce per edge (the tensor-core form: the bf16
+    products these inputs need, one m16n8k16 of 2 x 16 x 8 x 16 FLOP per
+    (k-step, M tile) pair in ``tile_steps``)."""
     reads_w = weighted and semiring in ("min_plus", "max_min", "plus_times")
     nbytes = n * (4 + 4 + (4 if reads_w else 0)) + n_blocks * 128 * 4
-    if mxu:
-        t_ops = n_blocks * 2 * 128 * 512 * 8 / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    if tile_steps is not None:
+        t_ops = tile_steps * 2 * 16 * 8 * 16 / H100_BF16_TENSOR_OPS_PER_S * 1e3
     else:
         ops = n * (1 if semiring in ("min", "max", "or") else 2)
         t_ops = ops / H100_FP32_OPS_PER_S * 1e3
@@ -352,13 +356,16 @@ def main() -> int:
     forms = []
     # the main path's forms first: BSP's min on int32 labels and the
     # oracle's plus_times, both without weights; then the weighted sweep,
-    # the tensor-core plus_times, and the oracle's form on its 2^14 stream
+    # the tensor-core plus_times, the oracle's form on its 2^14 stream, and
+    # the tensor-core form unweighted on both streams (2^14: phase 6's)
     for semiring, dtype, weighted, mxu, stream in [
             ("min", "int32", False, False, "RMAT 2^18"),
             ("plus_times", "float32", False, False, "RMAT 2^18")] + [
             (s, d, True, False, "RMAT 2^18") for s, d in SWEEP] + [
             ("plus_times", "float32", True, True, "RMAT 2^18"),
-            ("plus_times", "float32", False, False, "RMAT 2^14")]:
+            ("plus_times", "float32", False, False, "RMAT 2^14"),
+            ("plus_times", "float32", False, True, "RMAT 2^18"),
+            ("plus_times", "float32", False, True, "RMAT 2^14")]:
         dst_s = streams[stream]
         n_e, n_b = len(dst_s), len(dst_s) // 512
         v, d, w = spmv_inputs(np, torch, rng, n_e, dtype, dst=dst_s)
@@ -397,10 +404,12 @@ def main() -> int:
         check(torch.equal(lib_out[:-1].view(n_b, 128), kp)
               or semiring == "plus_times", f"library yardstick disagrees "
                                            f"({semiring})")
+        tile_steps = K.mma_tile_steps(d) if mxu else None
         bound_ms, bound_by, nbytes = bound_of(semiring, n_e, n_b, weighted,
-                                              mxu)
+                                              tile_steps)
         form = {"semiring": semiring, "dtype": dtype, "weights": weighted,
                 "tensor_cores": mxu, "stream": stream,
+                "mma_tile_steps": tile_steps,
                 "max_abs_err_vs_scalar": vs_scalar,
                 "bitwise_repeatable": repeatable,
                 "blocks": n_b, "max_abs_err": err, "ms": ms,
@@ -618,6 +627,8 @@ def main() -> int:
                 sum(path.get("plus_times_mxu/float32", 0) for path in paths),
                 worst["plus_times_mxu"])
     mxu["replaces"] = "src/repro/kernels/semiring_spmv.py:80"
+    mxu["forms"] = [f for f in forms if f["tensor_cores"]
+                    and f is not mxu_form]
     print(json.dumps({"kernels": [idem, pt, mxu]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,39 +57,93 @@
 // fp32 accumulation.  Here it is D = A B with `mma.sync.m16n8k16` (bf16
 // in, fp32 accumulate):
 //   * A [128 lanes x 512 edges] is the one-hot matrix, A[t, e] = (dst_e ==
-//     t).  0 and 1 are exact in bf16.  Each thread builds its A fragment
-//     in registers from the edges' dst, so A never touches memory.
+//     t), in 8 M tiles of 16 lanes.  Each thread builds its A fragments
+//     in registers, one fp16x2 compare (HSET2) per register: dst and row
+//     ride as fp16 1024 + k, and an equal pair gives fp16 1.0, 0x3C00,
+//     which read as bf16 is exactly 2^-7.  So A holds 2^-7 for a hit and
+//     the output is scaled back by 128, exactly.
 //   * B [512 edges x 8] holds cand_e = v_e * w_e (rounded to float32 as
 //     __fmul_rn, as the scalar form rounds it) split into three bf16
-//     terms, hi + mid + lo, in columns 0, 1, 2 (columns 3-7 are zero).
-//     Each term is the round-to-nearest bf16 of what the terms before it
-//     left, so hi + mid + lo == cand_e exactly: 3 x 8 significant bits
-//     cover float32's 24 (the residual after hi has at most 16 bits, the
-//     residual after mid at most 8).  This holds for |cand_e| >= 2^-110;
-//     below that bf16's subnormals drop bits of lo, an absolute error
-//     under 2^-133.  Inputs must be finite, as for the TPU's matmul form.
-//   * Every product is exact (one-hot times bf16), so only the fp32
-//     accumulation rounds: each column is a sum of at most 512 terms, and
-//     out = hi_sum + (mid_sum + lo_sum).  The error is that of a float32
-//     sum of the lane's terms, |err| <= ~513 u sum_e |cand_e| (u = 2^-24)
-//     at worst and ~sqrt(513) u in practice, like the scalar form's
-//     sequential sum; both are held to rtol/atol 1e-5 against the plain
-//     version.  Plain TF32 (10-bit mantissa) would not meet 1e-5.
-// One 128-thread block per edge block, as the scalar form.  Warp w owns
-// lanes [32w, 32w + 32): two 16-row M tiles.  It walks the 512 edges in
-// 32 k-steps of 16; per step each thread reads the dst and the split
-// terms of its four edges (2t, 2t+1, 2t+8, 2t+9) from shared memory,
-// builds both M tiles' A fragments and reuses its B fragment for both.
-// Bound: the same bytes as the weighted scalar form (0.0616 ms on the
-// RMAT 2^18 stream); the issued tensor work, 31,018 x 2 x 128 x 512 x 8 =
-// 3.3e10 FLOP, takes ~0.03 ms at 989 TFLOP/s (bf16 dense), under it.
+//     terms, hi + mid + lo, in columns 0, 1, 2 (columns 3-7 are never
+//     read).  Each term is the round-to-nearest bf16 of what the terms
+//     before it left, so hi + mid + lo == cand_e exactly: 3 x 8
+//     significant bits cover float32's 24 (the residual after hi has at
+//     most 16 bits, the residual after mid at most 8).  With the 2^-7 of
+//     A this holds for |cand_e| >= 2^-103; below that subnormals drop
+//     bits of lo, an absolute error under 2^-126.  Inputs must be finite,
+//     as for the TPU's matmul form.
+//   * Every product is exact (a power of two times bf16), so only the
+//     fp32 accumulation rounds: each warp sums its columns over at most
+//     128 edges, the four warps' sums are added in warp order, and out =
+//     128 (hi + (mid + lo)).  The error is that of a float32 sum of the
+//     lane's terms, like the scalar form's; both are held to rtol/atol
+//     1e-5 against the plain version.  Plain TF32 (10-bit mantissa) would
+//     not meet 1e-5.
+// Bound: the bytes of the scalar form, 12 per edge with weights (206 MB,
+// 0.0616 ms at 3.35 TB/s on the 31,018 blocks of an RMAT 2^18 pull), 8
+// without (143 MB, 0.0427 ms).  The tensor work is 4,096 FLOP per
+// (k-step, M tile) pair the kernel issues (kernels/semiring_spmv.py::
+// mma_tile_steps counts them): about 31 pairs a block on the
+// destination-sorted stream, ~4e9 FLOP at RMAT 2^18, ~0.004 ms at 989
+// TFLOP/s, far under the bytes.  What the design does against what holds
+// a row-split form (each warp owning 32 lanes and walking all 512 edges)
+// at several times its bound:
+//   * k-steps split across warps, not rows.  Warp w takes edges
+//     [128w, 128w + 128), 8 k-steps of 16, for all 8 M tiles, where a row
+//     split walks all 512 edges for each warp's two M tiles (256 mma a
+//     block, in chains of 32 dependent mma).  The warps write their
+//     hi/mid/lo column sums to shared memory and thread r adds them in
+//     warp order: no atomics, so two launches give the same bits.
+//   * Only the M tiles a k-step hits.  The stream is sorted by dst, so 16
+//     consecutive edges hit about one 16-lane tile.  The warp gathers
+//     every k-step's set of hit tiles at once (a tile mask per lane, two
+//     xor-shuffles, two __reduce_or_sync) and issues A builds and mma
+//     only for the tiles in the span [lowest, highest] of each k-step.
+//     An all-padding k-step issues nothing.  The skip is exact (a tile no
+//     edge hits adds 0), so any input stays right; on random dst every
+//     k-step issues all 8 tiles, 256 mma a block, but in 8 chains of 8 a
+//     warp, not 2 of 32.
+//   * Two accumulators where two do.  A warp of the sorted stream covers
+//     a few consecutive lanes, so nearly every warp hits at most two
+//     adjacent tiles over all its k-steps.  Such a warp keeps two
+//     accumulators at those tiles and tests two bits a k-step; any other
+//     warp keeps all eight (8 x 4 fp32 registers) behind a warp-uniform
+//     predicate on an unrolled m = 0..7 loop, so the accumulators stay in
+//     registers.  The combine adds a windowed warp's sums only on the 32
+//     rows of its window.
+//   * Each input byte is loaded once, 16 bytes at a time.  Lane i of a
+//     warp loads its four consecutive edges (one coalesced 16-byte load
+//     per array, as the scalar form does) and turns them in registers
+//     into their operands: the three split terms as B registers and the
+//     dst as fp16 keys (padding and keys >= 128 as 1279, which no row
+//     matches).  Within a k-step the pairing of k positions with edges is
+//     free as long as A and B share it, so thread (g, t) of the fragment
+//     layout takes the four edges of lane 4s + t as k = 2t, 2t + 1,
+//     2t + 8, 2t + 9.  The operands (32 bytes a lane) move through a
+//     per-warp slab of shared memory, written once, read by the warp's
+//     own threads after a __syncwarp: a thread reads its B term (which
+//     depends on g) and the dst keys with two 8-byte loads a k-step.
+//     Shuffles cannot do that as cheaply: a sender cannot choose the term
+//     for each of its eight readers, so all three terms' words move and g
+//     selects, 7 shuffles and 4 selects a k-step, and that version was
+//     bound by its instruction issue (PERF.md).
+//   * Occupancy: one 128-thread block per edge block with at most 64
+//     registers (__launch_bounds__(128, 8)), so at least 8 blocks, 48 KB
+//     of loads, are in flight per SM where ~20 KB covers the latency at
+//     3.35 TB/s.  A single streaming pass with no reuse gains nothing from
+//     TMA or a cp.async ring at that occupancy; ptxas' registers, shared
+//     memory and spills are in chip_smoke.py's phase `ptxas`.  wgmma is
+//     not the instruction here: its 64-row M would make the skip 4x
+//     coarser and each A build 4x larger, for tensor work that is already
+//     1/15 of the bytes bound.
 //
 // C interface: spmv_partials_launch sets the given device current, launches
 // on the given stream and returns cudaGetLastError(); it allocates nothing
-// and does not synchronise.  The scalar form reads 16-byte vectors, so its
-// input pointers must be 16-byte aligned (the wrapper checks).
+// and does not synchronise.  Both forms read 16-byte vectors, so the input
+// pointers must be 16-byte aligned (the wrapper checks).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -285,15 +339,42 @@ spmv_partials_kernel(const T* __restrict__ vals, const int* __restrict__ dst,
   out[(long long)blockIdx.x * TILE + tid] = acc;
 }
 
-// halfword stride of one split row in shared memory: 264 words, so the
-// three rows start 8 banks apart and a warp's B reads do not conflict
-constexpr int kSplitStride = EDGE_BLOCK + 16;
-constexpr unsigned kOneBf16 = 0x3F80u;  // 1.0 in bf16
+constexpr int KSTEP = 16;                          // edges per mma k-step
+constexpr int KSTEPS = 32 * PER_THREAD / KSTEP;    // 8 k-steps a warp
+constexpr int M_TILES = TILE / 16;                 // 8 M tiles of 16 lanes
+// a row of part: D columns 0 and 2 of a row land 8 banks apart
+constexpr int kPartStride = TILE + 4;
 
-// two one-hot bf16 entries of row `row`, packed as an A register (the
-// lower edge in the low half)
-__device__ __forceinline__ unsigned onehot2(int2 d, int row) {
-  return (d.x == row ? kOneBf16 : 0u) | (d.y == row ? kOneBf16 << 16 : 0u);
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// the exact three-term bf16 split of (c0, c1): hi + mid + lo == c, each
+// term packed as a B register (c0 in the low half)
+__device__ __forceinline__ void split3(float c0, float c1, unsigned& hi,
+                                      unsigned& mid, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(c0, c1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = __fsub_rn(c0, hf.x), r1 = __fsub_rn(c1, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(m);
+  lo = bf16x2_bits(__floats2bfloat162_rn(__fsub_rn(r0, mf.x),
+                                         __fsub_rn(r1, mf.y)));
+}
+
+// two one-hot entries packed as an A register, in one fp16x2 compare: p
+// holds two dst and r the row twice as fp16 1024 + k (bits 0x6400 + k,
+// exact for k < 1024); equal halves become fp16 1.0, 0x3C00, which read as
+// bf16 is 2^-7 (kOneHot), and the others 0
+constexpr float kOneHot = 0.0078125f;  // 2^-7
+constexpr unsigned kFp16Base = 0x64006400u;  // fp16 1024 in both halves
+
+__device__ __forceinline__ unsigned onehot2(unsigned p, unsigned r) {
+  const __half2 eq = __heq2(*reinterpret_cast<const __half2*>(&p),
+                            *reinterpret_cast<const __half2*>(&r));
+  return *reinterpret_cast<const unsigned*>(&eq);
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&acc)[4], unsigned a0,
@@ -309,66 +390,153 @@ __device__ __forceinline__ void mma_bf16_16816(float (&acc)[4], unsigned a0,
         "f"(acc[0]), "f"(acc[1]), "f"(acc[2]), "f"(acc[3]));
 }
 
-__global__ void __launch_bounds__(TILE)
+// what one lane's four edges give the tensor-core form's k-step: the
+// split terms hi, mid, lo as B registers (edges 0, 1 in .x, 2, 3 in .y)
+// and the dst as fp16x2 A-build keys
+struct __align__(16) Operands {
+  uint2 terms[3];
+  uint2 dst;
+};
+
+__global__ void __launch_bounds__(TILE, 8)
 spmv_plus_times_mma_kernel(const float* __restrict__ vals,
                            const int* __restrict__ dst,
                            const float* __restrict__ w,
                            float* __restrict__ out) {
-  __shared__ __align__(16) int sdst[EDGE_BLOCK];
-  __shared__ __align__(16) unsigned short split[3][kSplitStride];
-  const long long base = (long long)blockIdx.x * EDGE_BLOCK;
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < EDGE_BLOCK / TILE; ++k) {
-    const int e = k * TILE + tid;
-    const float v = vals[base + e];
-    const float cand = w != nullptr ? __fmul_rn(v, w[base + e]) : v;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(cand);
-    const float r1 = __fsub_rn(cand, __bfloat162float(hi));
-    const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
-    const __nv_bfloat16 lo =
-        __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
-    split[0][e] = __bfloat16_as_ushort(hi);
-    split[1][e] = __bfloat16_as_ushort(mid);
-    split[2][e] = __bfloat16_as_ushort(lo);
-    sdst[e] = dst[base + e];
-  }
-  __syncthreads();
-
-  const int lane = tid & 31;
+  // per warp, D columns 0-3 of every row: hi, mid, lo sums (3 unused)
+  __shared__ float part[WARPS][4][kPartStride];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2;  // fragment row group / B column
   const int t = lane & 3;   // thread in group
-  const int row0 = (tid >> 5) * 32 + g;  // M tile m covers row0 + 16m (+8)
-  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 4
-  for (int kb = 0; kb < EDGE_BLOCK; kb += 16) {
-    const int e0 = kb + 2 * t;  // k = 2t, 2t+1; e0 + 8: k = 2t+8, 2t+9
-    const int2 d01 = *reinterpret_cast<const int2*>(&sdst[e0]);
-    const int2 d89 = *reinterpret_cast<const int2*>(&sdst[e0 + 8]);
-    unsigned b0 = 0u, b1 = 0u;
-    if (g < 3) {
-      b0 = *reinterpret_cast<const unsigned*>(&split[g][e0]);
-      b1 = *reinterpret_cast<const unsigned*>(&split[g][e0 + 8]);
-    }
+  const long long e0 = (long long)blockIdx.x * EDGE_BLOCK + PER_THREAD * tid;
+
+  // my four consecutive edges, one 16-byte load per array
+  int d[PER_THREAD];
+  float c[PER_THREAD];
+  load4(dst + e0, d);
+  load4(vals + e0, c);
+  if (w != nullptr) {
+    float wt[PER_THREAD];
+    load4(w + e0, wt);
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int r = row0 + 16 * m;
-      mma_bf16_16816(acc[m], onehot2(d01, r), onehot2(d01, r + 8),
-                     onehot2(d89, r), onehot2(d89, r + 8), b0, b1);
+    for (int e = 0; e < PER_THREAD; ++e) c[e] = __fmul_rn(c[e], wt[e]);
+  }
+  // the operands my four edges give a k-step: their split terms and their
+  // dst as fp16 1024 + dst (padding and keys >= TILE as 1279, which no row
+  // matches), and the set of M tiles they hit
+  Operands mine;
+  split3(c[0], c[1], mine.terms[0].x, mine.terms[1].x, mine.terms[2].x);
+  split3(c[2], c[3], mine.terms[0].y, mine.terms[1].y, mine.terms[2].y);
+  unsigned tiles = 0u, key[PER_THREAD];
+#pragma unroll
+  for (int e = 0; e < PER_THREAD; ++e) {
+    const bool valid = (unsigned)d[e] < (unsigned)TILE;
+    key[e] = valid ? (unsigned)d[e] : 0xffu;
+    tiles |= valid ? 1u << (key[e] >> 4) : 0u;
+  }
+  mine.dst = make_uint2(__byte_perm(key[0], key[1], 0x5410) | kFp16Base,
+                        __byte_perm(key[2], key[3], 0x5410) | kFp16Base);
+  // they go through a per-warp slab of shared memory: the B term a reader
+  // takes depends on its g, which a shuffle's sender cannot choose
+  __shared__ Operands slab[WARPS][32];
+  slab[warp][lane] = mine;
+  __syncwarp();
+  // k-step s is the warp's edges [16s, 16s + 16), held by lanes 4s..4s+3:
+  // their tile sets, OR-ed, go to byte s & 3 of sets[s >> 2]
+  // (warp-uniform)
+  tiles |= __shfl_xor_sync(kFull, tiles, 1);
+  tiles |= __shfl_xor_sync(kFull, tiles, 2);
+  const unsigned placed = tiles << (8 * (g & 3));
+  const unsigned sets[2] = {__reduce_or_sync(kFull, g < 4 ? placed : 0u),
+                            __reduce_or_sync(kFull, g < 4 ? 0u : placed)};
+  // lane 4s + t's edges are my k = 2t, 2t + 1, 2t + 8, 2t + 9 in k-step s;
+  // B column g takes term g (columns 3-7 take lo and are never read)
+  const Operands* from = &slab[warp][t];
+  const int term = g < 2 ? g : 2;
+  const unsigned row0 = kFp16Base + (unsigned)g * 0x10001u;  // row g, fp16
+  // one mma of k-step s into the tile whose row g is r
+  auto issue = [&](float (&acc)[4], int s, unsigned r) {
+    const uint2 p = from[4 * s].dst, b = from[4 * s].terms[term];
+    const unsigned r8 = r + 0x80008u;  // row + 8
+    mma_bf16_16816(acc, onehot2(p.x, r), onehot2(p.x, r8), onehot2(p.y, r),
+                   onehot2(p.y, r8), b.x, b.y);
+  };
+  // every tile the warp's k-steps hit
+  unsigned hit = sets[0] | sets[1];
+  hit = (hit | hit >> 8 | hit >> 16 | hit >> 24) & 0xffu;
+  __shared__ int window_of[WARPS];
+  int window = -1;  // all tiles
+  if (hit == 0u || 31 - __clz(hit) - (__ffs(hit) - 1) <= 1) {
+    // the stream's common case: the warp hits at most two adjacent tiles,
+    // so two accumulators at tiles [window, window + 1] cover it; bits 0
+    // and 1 of k-step s's byte in near[] say which of the two it hits
+    window = min(max(__ffs(hit) - 1, 0), M_TILES - 2);
+    const unsigned near[2] = {sets[0] >> window, sets[1] >> window};
+    const unsigned r0 = row0 + (unsigned)window * 0x100010u;
+    const unsigned r1 = r0 + 0x100010u;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s) {
+      const unsigned byte = 8 * (s & 3);
+      if (near[s >> 2] & (1u << byte)) issue(acc[0], s, r0);
+      if (near[s >> 2] & (2u << byte)) issue(acc[1], s, r1);
+    }
+    if (t < 2) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int r = g + 16 * (window + m);
+        part[warp][2 * t][r] = acc[m][0];
+        part[warp][2 * t + 1][r] = acc[m][1];
+        part[warp][2 * t][r + 8] = acc[m][2];
+        part[warp][2 * t + 1][r + 8] = acc[m][3];
+      }
+    }
+  } else {
+    float acc[M_TILES][4];
+#pragma unroll
+    for (int m = 0; m < M_TILES; ++m)
+      acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s) {
+      const unsigned set = (sets[s >> 2] >> (8 * (s & 3))) & 0xffu;
+      if (set == 0u) continue;  // all padding: nothing to issue
+      // the span [lowest, highest] of the tiles hit, as a mask
+      const unsigned span =
+          (0xffu >> __clz(set << 24)) & (0u - (set & (0u - set)));
+#pragma unroll
+      for (int m = 0; m < M_TILES; ++m)  // a warp-uniform skip
+        if (span & (1u << m)) issue(acc[m], s, row0 + m * 0x100010u);
+    }
+    // thread (g, t) holds D columns 2t, 2t + 1 of rows g + 16m and
+    // g + 8 + 16m: t = 0 the hi and mid sums, t = 1 the lo sum
+    if (t < 2) {
+#pragma unroll
+      for (int m = 0; m < M_TILES; ++m) {
+        const int r = g + 16 * m;
+        part[warp][2 * t][r] = acc[m][0];
+        part[warp][2 * t + 1][r] = acc[m][1];
+        part[warp][2 * t][r + 8] = acc[m][2];
+        part[warp][2 * t + 1][r + 8] = acc[m][3];
+      }
     }
   }
-  // thread t = 0 holds columns 0, 1 (hi, mid) of rows r and r + 8; its
-  // neighbour t = 1 holds column 2 (lo)
+  if (lane == 0) window_of[warp] = window;
+  __syncthreads();
+  // my row's sums over the warps, in warp order; a warp whose window does
+  // not hold my row adds 0
+  float hi = 0.f, mid = 0.f, lo = 0.f;
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const float lo_r = __shfl_down_sync(0xffffffffu, acc[m][0], 1);
-    const float lo_r8 = __shfl_down_sync(0xffffffffu, acc[m][2], 1);
-    if (t == 0) {
-      const long long o = (long long)blockIdx.x * TILE + row0 + 16 * m;
-      out[o] = __fadd_rn(acc[m][0], __fadd_rn(acc[m][1], lo_r));
-      out[o + 8] = __fadd_rn(acc[m][2], __fadd_rn(acc[m][3], lo_r8));
+  for (int wi = 0; wi < WARPS; ++wi) {
+    const int win = window_of[wi];
+    if (win < 0 || (unsigned)(tid - 16 * win) < 32u) {
+      hi = __fadd_rn(hi, part[wi][0][tid]);
+      mid = __fadd_rn(mid, part[wi][1][tid]);
+      lo = __fadd_rn(lo, part[wi][2][tid]);
     }
   }
+  // undo the one-hot's 2^-7: exact
+  out[(long long)blockIdx.x * TILE + tid] =
+      __fmul_rn(__fadd_rn(hi, __fadd_rn(mid, lo)), 1.0f / kOneHot);
 }
 
 template <typename T>

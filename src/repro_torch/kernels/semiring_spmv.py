@@ -26,7 +26,10 @@ against the plain version.  ``use_mxu=True`` selects the tensor-core form
 of ``plus_times`` (the JAX package's one-hot matmul on the TPU's matrix
 unit): the same sum, as a one-hot ``[128, 512]`` matrix times the edge
 values split into three bf16 terms, on ``mma.sync`` with fp32
-accumulation.
+accumulation.  Each warp takes 8 k-steps of 16 edges and issues the
+products only for the 16-lane M tiles in its k-step's span of dst, which
+on the destination-sorted stream is about one tile; ``mma_tile_steps``
+counts the (k-step, M tile) pairs it issues.
 
 ``spmv_partials`` launches the kernel for CUDA tensors and takes the plain
 version (``kernels/ref.py``) only for tensors on the CPU; there is no
@@ -102,11 +105,14 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
             edge_dst_local.shape != edge_vals.shape:
         raise TypeError("edge_dst_local must be int32 of the same shape as "
                         "edge_vals")
+    # min, max and or ignore the weights: they are checked as inputs, but
+    # neither cast nor passed to the kernel
+    reads_weights = semiring not in ("min", "max", "or")
     if edge_weights is not None:
         if edge_weights.shape != edge_vals.shape:
             raise ValueError("edge_weights must match edge_vals' shape")
-        # the value dtype, as the JAX wrapper casts it
-        edge_weights = edge_weights.to(dtype)
+        if reads_weights:  # in the value dtype, as the JAX wrapper casts
+            edge_weights = edge_weights.to(dtype)
     tensors = [edge_vals, edge_dst_local] + (
         [edge_weights] if edge_weights is not None else [])
     for t in tensors:
@@ -114,8 +120,10 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
             raise ValueError("all inputs must be on one device")
         if not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
-        if not mxu and t.data_ptr() % 16:  # the scalar kernel's vector loads
+        if t.data_ptr() % 16:  # both kernels load 16-byte vectors
             raise ValueError("inputs must start on a 16-byte boundary")
+    if not reads_weights:
+        edge_weights = None
 
     n_blocks = n // EDGE_BLOCK
     out = torch.empty((n_blocks, TILE), dtype=dtype, device=edge_vals.device)
@@ -144,6 +152,24 @@ def spmv_partials(edge_vals: torch.Tensor, edge_dst_local: torch.Tensor,
     spmv_partials.launches_by_form[key] = \
         spmv_partials.launches_by_form.get(key, 0) + 1
     return out
+
+
+def mma_tile_steps(edge_dst_local) -> int:
+    """The (k-step, M tile) pairs the tensor-core form issues on this dst
+    stream: for each k-step of 16 consecutive edges with a valid dst
+    (``0 <= dst < TILE``), the 16-lane M tiles in the span from its lowest
+    to its highest valid dst's tile.  Each pair is one
+    ``mma.sync.m16n8k16``, 4,096 FLOP."""
+    dst = torch.as_tensor(edge_dst_local).reshape(-1)
+    if dst.numel() % EDGE_BLOCK:
+        raise ValueError(f"edge stream length {dst.numel()} is not a "
+                         f"multiple of {EDGE_BLOCK}")
+    d = dst.to(torch.int64).reshape(-1, 16)
+    valid = (d >= 0) & (d < TILE)
+    tile = d.clamp(0, TILE - 1) // 16
+    hi = torch.where(valid, tile, -1).amax(dim=1)
+    lo = torch.where(valid, tile, TILE).amin(dim=1)
+    return int((hi - lo + 1).clamp(min=0).sum())
 
 
 # launches of the CUDA kernels in this process per "semiring/dtype" form,

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA semiring SpMV kernels (the scalar forms,
 on random and on destination-sorted streams, and the tensor-core
-``plus_times``) against their plain version, the main
+``plus_times`` on random, sorted and crafted dst layouts) against their
+plain version, the main
 path against its CPU run, pagerank against its verdict and fault recovery
 against its CPU run.
 
@@ -133,11 +134,14 @@ def test_kernel_matches_plain_on_sorted_streams(cuda, case, semiring, dtype,
 @pytest.mark.parametrize("weighted", [True, False])
 def test_plus_times_is_deterministic(cuda, use_mxu, weighted):
     """No atomics: two launches on the same sorted or unsorted input give
-    the same bits."""
+    the same bits, and on a stream whose every k-step spans all eight M
+    tiles (the tensor-core form's worst case)."""
     sorted_d = torch.from_numpy(_sorted_dst("rmat_pulled")).to(cuda)
     vals, rand_d, w = _inputs(12, len(sorted_d), torch.float32, cuda)
     w = w if weighted else None
-    for dst in (sorted_d, rand_d):
+    worst_d = torch.from_numpy(np.resize(_mxu_dst("span_worst"),
+                                         len(sorted_d))).to(cuda)
+    for dst in (sorted_d, rand_d, worst_d):
         a = K.spmv_partials(vals, dst, w, semiring="plus_times",
                             use_mxu=use_mxu)
         b = K.spmv_partials(vals, dst, w, semiring="plus_times",
@@ -145,18 +149,36 @@ def test_plus_times_is_deterministic(cuda, use_mxu, weighted):
         assert torch.equal(a, b)
 
 
-def test_wrapper_refuses_misaligned_inputs(cuda):
-    """The scalar kernel reads 16-byte vectors: an input that does not
-    start on a 16-byte boundary raises, whichever input it is."""
+@pytest.mark.parametrize("semiring,use_mxu", [("min", False),
+                                              ("plus_times", True)])
+def test_wrapper_refuses_misaligned_inputs(cuda, semiring, use_mxu):
+    """Both kernels read 16-byte vectors: an input that does not start on a
+    16-byte boundary raises, whichever input it is."""
     vals, dst, w = _inputs(13, K.EDGE_BLOCK + 1, torch.float32, cuda)
     args = [vals[:-1], dst[:-1], w[:-1]]
-    K.spmv_partials(*args, semiring="min")  # aligned: launches
+    K.spmv_partials(*args, semiring=semiring, use_mxu=use_mxu)  # launches
     for i, t in enumerate((vals, dst, w)):
         bad = list(args)
         bad[i] = t[1:]
         assert bad[i].data_ptr() % 16
         with pytest.raises(ValueError, match="16-byte"):
-            K.spmv_partials(*bad, semiring="min")
+            K.spmv_partials(*bad, semiring=semiring, use_mxu=use_mxu)
+
+
+@pytest.mark.parametrize("semiring", ["min", "max", "or"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_ignored_weights_are_not_passed(cuda, semiring, dtype):
+    """min, max and or ignore the weights: the wrapper gives the kernel
+    none, and the output is bitwise the unweighted call's and the plain
+    version's."""
+    d = torch.from_numpy(_sorted_dst("rmat_pulled")).to(cuda)
+    vals, rand_d, w = _inputs(14, len(d), dtype, cuda)
+    for dst in (d, rand_d):
+        kw = K.spmv_partials(vals, dst, w, semiring=semiring)
+        assert torch.equal(kw, K.spmv_partials(vals, dst, None,
+                                               semiring=semiring))
+        assert torch.equal(kw, R.spmv_partials_ref(vals, dst, w,
+                                                   semiring=semiring))
 
 
 def test_max_clamps_at_identity(cuda):
@@ -175,14 +197,46 @@ def test_all_padding_block(cuda):
                                             semiring="min")).all())
 
 
-@pytest.mark.parametrize("n_blocks", [1, 3, 8])
+def _mxu_dst(case):
+    """dst layouts for the tensor-core form, which issues its products only
+    for the M tiles (16 lanes) in each k-step's (16 edges') span of dst,
+    as numpy int32."""
+    eb = K.EDGE_BLOCK
+    rng = np.random.default_rng(21)
+    if case.startswith("random-"):  # every k-step spans nearly all tiles
+        return rng.integers(-1, K.TILE, int(case[7:]) * eb).astype(np.int32)
+    if case == "rmat_pulled":  # the stream's layout: ~1 tile a k-step
+        return _sorted_dst("rmat_pulled")
+    if case == "span_worst":  # every k-step holds dst 0 and dst 127
+        return np.tile(np.repeat(np.array([0, K.TILE - 1], np.int32), 8),
+                       2 * eb // 16)
+    if case == "warp_boundary":  # runs across the 128-edge warp boundaries
+        a = np.repeat(np.array([3, 17, 40, 77, 126]), 100)
+        b = np.repeat(np.arange(0, K.TILE, 12), 45)[:eb]
+        return np.concatenate([a, np.full(eb - len(a), -1), b,
+                               np.full(eb - len(b), -1)]).astype(np.int32)
+    # "padding_mid": all-padding k-steps inside the block, between hits
+    d = np.sort(rng.integers(0, K.TILE, 2 * eb)).astype(np.int32)
+    ks = np.arange(2 * eb) // 16
+    d[np.isin(ks % 32, [5, 6, 7, 8, 9, 20, 21, 31])] = -1
+    return d
+
+
+MXU_CASES = ["random-1", "random-3", "random-8", "rmat_pulled", "span_worst",
+             "warp_boundary", "padding_mid"]
+
+
+@pytest.mark.parametrize("case", MXU_CASES)
 @pytest.mark.parametrize("weighted", [True, False])
-def test_mxu_form_matches_plain(cuda, n_blocks, weighted):
+def test_mxu_form_matches_plain(cuda, case, weighted):
     """The tensor-core plus_times: within rtol/atol 1e-5 of the plain
-    version (fp32 accumulation of an exact three-term bf16 split), counted
-    under its own key."""
-    vals, dst, w = _inputs(10 + n_blocks, n_blocks * K.EDGE_BLOCK,
-                           torch.float32, cuda)
+    version (fp32 accumulation of an exact three-term bf16 split) on random
+    dst, the sorted stream and crafted layouts of the M-tile skip, two
+    launches bitwise equal, counted under its own key."""
+    d = _mxu_dst(case)
+    n_blocks = len(d) // K.EDGE_BLOCK
+    vals, _, w = _inputs(10 + n_blocks, len(d), torch.float32, cuda)
+    dst = torch.from_numpy(d).to(cuda)
     w = w if weighted else None
     before = K.spmv_partials.launches_by_form.get("plus_times_mxu/float32", 0)
     kp = K.spmv_partials(vals, dst, w, semiring="plus_times", use_mxu=True)
@@ -191,6 +245,9 @@ def test_mxu_form_matches_plain(cuda, n_blocks, weighted):
         before + 1
     _check(kp, R.spmv_partials_ref(vals, dst, w, semiring="plus_times"),
            "plus_times")
+    assert torch.equal(kp, K.spmv_partials(vals, dst, w,
+                                           semiring="plus_times",
+                                           use_mxu=True))
     pad_d = torch.full_like(dst, -1)
     assert torch.equal(K.spmv_partials(vals, pad_d, w, semiring="plus_times",
                                        use_mxu=True),
