@@ -41,10 +41,33 @@ non-zero:
      ``asymp_cc_large`` by replay — labels equal the fault-free labels,
      4 failures — and ``asymp_pagerank`` by global checkpoint restore —
      no replay, the verdict of phase 6;
-  8. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+  8. ``wire``: ``asymp_cc_wire`` (RMAT 2^14, int16 labels and ids) to
+     convergence, its labels equal to the raw-wire ``asymp_cc_small``
+     run's; the codec's int16/int8 encode and decode of ints and of
+     up/down-rounded floats on the card bitwise equal to the same calls on
+     the CPU; the wire bytes a tick, raw and int16;
+  9. ``crowded_main`` (paper §5.4), this slice's path at full width:
+     ``asymp_cc_large`` under ``latency_profile="stragglers"``, half the
+     shards crowded (link delay 2, budget / 4; what ``graph_mine --config
+     asymp_cc_large --slowdown 0.5 --link-delay 2 --intensity 4`` runs) to
+     convergence: labels equal phase 4's, the delay ring drained; ticks,
+     messages, the degradation against phase 4's ticks, wall time, peak
+     memory; then a profiled window of crowded ticks and one of async
+     ticks on the same graph and profile;
+ 10. ``crowded_smoke``, ``benchmarks/bench_crowded.py --smoke`` on the card
+     (RMAT 2^12 SSSP, 8 shards): healthy and crowded tick counts of the
+     priority, FIFO and async schedulers equal the JAX package's
+     baselines, the §5.4 gates hold, every fixpoint equals the healthy
+     one, and the healthy distances equal the kernel-backed ``min_plus``
+     pull iterated from the program's initial values to its fixpoint;
+ 11. ``crowded_faults``: ``asymp_cc_crowded`` (RMAT 2^14), sync and async,
+     under kills plus slowdowns: labels equal the fault-free labels, 4
+     failures, messages replayed;
+ 12. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 before each path (4, 6, 7) and read after it.
+Launch counts are set to 0 before each path (4, 6, 7, 9, 10) and read
+after it.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -76,6 +99,20 @@ PROFILE_WARM_TICKS, PROFILE_TICKS = 100, 20
 JAX_PAGERANK = (7202, 98730925)
 ORACLE_ITERS = 80
 PUSH_EPS = 1e-5
+# benchmarks/bench_crowded.py: the two policies, the two conditions, and
+# the smoke counts of benchmarks/baselines/BENCH_crowded.json as (healthy,
+# crowded) ticks
+FIFO = dict(priority="disabled", straggler_demote=0)
+PRIORITY = dict(priority="log", straggler_demote=8)
+HEALTHY = dict(profile="uniform", link_delay=0)
+CROWDED = dict(profile="stragglers", slow_fraction=0.5, link_delay=2,
+               intensity=4)
+CROWDED_BASELINE = {"priority": (172, 201), "fifo": (270, 297),
+                    "async": (172, 148)}
+# graph_mine --slowdown 0.5 --link-delay 2 --intensity 4
+SLOWDOWN = dict(latency_profile="stragglers", slow_fraction=0.5,
+                link_delay=2, slow_intensity=4)
+CROWDED_WARM_TICKS, ASYNC_WARM_TICKS = 100, 20
 
 
 class SmokeFailure(Exception):
@@ -231,6 +268,206 @@ def pagerank_verdict(torch, np, M, state, totals, g, oracle, where):
     return l1, mass
 
 
+def window_profile(torch, sess, warm: int) -> dict:
+    """``warm`` ticks of a session, then a profiled window of
+    ``PROFILE_TICKS`` more: ms a tick and device time by op."""
+    for _ in range(warm):
+        sess.step()
+    torch.cuda.synchronize()
+
+    def ticks():
+        for _ in range(PROFILE_TICKS):
+            sess.step()
+
+    prof = device_profile(torch, ticks)
+    return dict(ticks=f"{warm}..{warm + PROFILE_TICKS}",
+                ms_per_tick=prof["window_s"] / PROFILE_TICKS * 1e3,
+                pending=sess._pending, **prof)
+
+
+def wire_phase(np, torch, E, G, X, get_graph_config, dev) -> None:
+    """``asymp_cc_wire`` against ``asymp_cc_small`` (one graph, int16 and
+    raw wire) and the codec on the card against the CPU."""
+    cfg_w = get_graph_config("asymp_cc_wire")
+    cfg_raw = get_graph_config("asymp_cc_small")
+    g = G.build_sharded_graph(cfg_w)
+    n = g.num_real_vertices
+    runs = []
+    for cfg in (cfg_raw, cfg_w):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess = E.EngineSession(cfg, graph=g, device=dev)
+        tot = sess.tick_until_quiescent()
+        torch.cuda.synchronize()
+        runs.append((sess.state.values.reshape(-1)[:n], tot,
+                     time.perf_counter() - t0,
+                     E.wire_codec(sess.prog, sess.ep)))
+    (raw_l, raw_t, raw_s, raw_c), (w_l, w_t, w_s, w_c) = runs
+    # the codec on the card against the same calls on the CPU
+    rng = np.random.default_rng(5)
+    ints = rng.integers(-1, 40_000, (8, 8, 512)).astype(np.int32)
+    ints[0, 0, :8] = 2 ** 31 - 1
+    flt = rng.uniform(-100, 100, (8, 8, 512)).astype(np.float32)
+    flt[0, 0, ::5], flt[1, 1] = np.inf, np.inf
+    flt[2, 2] = 0.0
+    cases = 0
+    for mode in ("int16", "int8"):
+        for kind, data, ident, direction in (
+                ("int32", ints, 2 ** 31 - 1, "up"),
+                ("float32", flt, float("inf"), "up"),
+                ("float32", flt, 0.0, "down")):
+            codec = X.make_wire_codec(
+                num_shards=8, capacity=512, vs=20_000, requested=mode,
+                value_kind=kind, identity=ident, max_int_value=50_000,
+                quantize_direction=direction, idempotent=True)
+            host = torch.from_numpy(data)
+            outs = []
+            for x in (host, host.to(dev)):
+                payload, scales = codec.encode(x)
+                outs.append([payload, scales, codec.decode(payload, scales)])
+            for a, b in zip(*outs):
+                check(a is None and b is None or torch.equal(a, b.cpu()),
+                      f"wire codec {mode}/{kind}/{direction}: the card "
+                      f"differs from the CPU")
+            cases += 1
+    say("wire", config="asymp_cc_wire", compression=w_c.compression,
+        compress_ids=w_c.compress_ids, ticks=w_t["ticks"],
+        messages=w_t["sent"], raw_ticks=raw_t["ticks"],
+        raw_messages=raw_t["sent"], propagation_s=w_s, raw_propagation_s=raw_s,
+        wire_bytes_per_tick=w_c.wire_bytes_per_tick(),
+        raw_wire_bytes_per_tick=raw_c.wire_bytes_per_tick(),
+        labels_equal_raw=torch.equal(w_l, raw_l), codec_cases_bitwise=cases)
+    check(w_c.compression == "int16" and w_c.compress_ids,
+          f"asymp_cc_wire gated to {w_c.compression}")
+    check(w_t["converged"] and torch.equal(w_l, raw_l),
+          "asymp_cc_wire: labels differ from asymp_cc_small's")
+
+
+def crowd_sssp_config(GraphConfig):
+    """``bench_crowded``'s ``_scenario_cfg``: RMAT 2^12 SSSP on 8 shards."""
+    return GraphConfig(name="crowd-sssp", algorithm="sssp",
+                       num_vertices=1 << 12, avg_degree=16, generator="rmat",
+                       num_shards=8, enforce_fraction=1.0, edge_budget=512,
+                       weighted=True, **PRIORITY)
+
+
+def crowded_smoke_phase(np, torch, E, K, L, R, ops, cfg, g, pg,
+                        get_program, dev) -> dict:
+    """``bench_crowded --smoke``'s scenario (``cfg``, its graph ``g`` and
+    pulled stream ``pg``), counts and gates; the SSSP fixpoint against the
+    kernel-backed ``min_plus`` pull, each round's kernel partials held
+    bitwise against the plain version on that round's inputs.  Returns the
+    pull's launches."""
+    n = g.num_real_vertices
+    res, healthy = {}, None
+    for name, c in (("priority", cfg),
+                    ("fifo", dataclasses.replace(cfg, **FIFO)),
+                    ("async", dataclasses.replace(cfg, schedule="async"))):
+        for cond, lat_kw in (("healthy", HEALTHY), ("crowded", CROWDED)):
+            lat = L.make_latency_model(num_shards=c.num_shards,
+                                       seed=c.latency_seed, **lat_kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, tot = E.run_to_convergence(c, graph=g, latency=lat,
+                                           device=dev)
+            torch.cuda.synchronize()
+            dist = st.values.reshape(-1)[:n]
+            healthy = dist if healthy is None else healthy
+            check(tot["converged"] and tot["pending"] == 0,
+                  f"crowded smoke {name}/{cond} did not converge")
+            check(torch.equal(dist, healthy),
+                  f"crowded smoke {name}/{cond}: fixpoint differs")
+            res[name, cond] = (tot["ticks"], tot["sent"],
+                               time.perf_counter() - t0)
+    ratio = {k: res[k, "crowded"][0] / res[k, "healthy"][0]
+             for k in CROWDED_BASELINE}
+    # the healthy distances against the min_plus pull to its fixpoint
+    pg = pg.to(dev)
+    prog = get_program(cfg)
+    gids = torch.arange(n, dtype=torch.int32, device=dev)
+    v, _ = prog.init(gids, torch.ones(n, dtype=torch.bool, device=dev))
+    inputs = []  # each round's input values, for the check below
+    K.reset_launch_counts()
+    while True:
+        inputs.append(v)
+        nxt = ops.frontier_pull_step(v, pg, semiring="min_plus")
+        if torch.equal(nxt, v):
+            break
+        v = nxt
+    torch.cuda.synchronize()
+    pull_launches = dict(K.spmv_partials.launches_by_form)
+    rounds = len(inputs)
+    # the pull's own kernel inputs, round by round: the edge values it
+    # gathers, its dst stream and its weights (these launches are not the
+    # path's: the counts were read above)
+    pull_err, ident = 0.0, K._identity("min_plus", v.dtype)
+    src = pg.edge_src.long()
+    for vin in inputs:
+        vpad = torch.cat([vin, vin.new_full((pg.num_vertices - n,), ident)])
+        vals = torch.where(src >= 0, vpad[src.clamp(min=0)],
+                           vin.new_full((), ident))
+        kp = K.spmv_partials(vals, pg.edge_dst_local, pg.weights,
+                             semiring="min_plus")
+        rp = R.spmv_partials_ref(vals, pg.edge_dst_local, pg.weights,
+                                 semiring="min_plus")
+        pull_err = max(pull_err, max_abs_err(torch, kp, rp))
+        check(torch.equal(kp, rp), "min_plus differs from its plain version "
+                                   "on a pull round of the crowded smoke")
+    say("crowded_smoke", config=cfg.name,
+        ticks={f"{k}/{c}": res[k, c][0] for k, c in res},
+        messages={f"{k}/{c}": res[k, c][1] for k, c in res},
+        seconds={f"{k}/{c}": res[k, c][2] for k, c in res},
+        baseline_ticks=CROWDED_BASELINE, degradation=ratio,
+        min_plus_pull_rounds=rounds, min_plus_pull_max_abs_err=pull_err,
+        pull_equals_engine=torch.equal(v, healthy),
+        kernel_launches=pull_launches)
+    for k, want in CROWDED_BASELINE.items():
+        check((res[k, "healthy"][0], res[k, "crowded"][0]) == want,
+              f"crowded smoke {k}: ticks {res[k, 'healthy'][0]}/"
+              f"{res[k, 'crowded'][0]} != the baseline's {want}")
+    check(ratio["priority"] < 2.0
+          and res["priority", "crowded"][0] < res["fifo", "crowded"][0]
+          and res["priority", "crowded"][1] < res["fifo", "crowded"][1]
+          and ratio["async"] <= ratio["priority"],
+          f"crowded smoke gates fail: {ratio}")
+    check(torch.equal(v, healthy),
+          "the SSSP fixpoint differs from the kernel-backed min_plus pull")
+    check(pull_launches.get("min_plus/float32", 0) == rounds,
+          f"min_plus launches {pull_launches} != {rounds} pull rounds")
+    return pull_launches
+
+
+def crowded_faults_phase(torch, E, F, G, get_graph_config, dev) -> None:
+    """``asymp_cc_crowded`` under kills plus slowdowns, sync and async."""
+    plan = dict(fail_fraction=0.5, start_tick=4, every=6, slow_fraction=0.5,
+                slow_delay=3, slow_intensity=4)
+    cfg = get_graph_config("asymp_cc_crowded")
+    g = G.build_sharded_graph(cfg)
+    n = g.num_real_vertices
+    for schedule in ("sync", "async"):
+        c = dataclasses.replace(cfg, schedule=schedule)
+        base, bt = E.run_to_convergence(c, graph=g, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, tot = E.run_to_convergence(c, graph=g, device=dev,
+                                       fault_plan=F.FaultPlan(**plan))
+        torch.cuda.synchronize()
+        same = torch.equal(st.values.reshape(-1)[:n],
+                           base.values.reshape(-1)[:n])
+        say("crowded_faults", config="asymp_cc_crowded", schedule=schedule,
+            plan=plan,
+            ticks=tot["ticks"], fault_free_ticks=bt["ticks"],
+            failures=tot["failures"], replayed_messages=tot["replayed"],
+            messages=tot["sent"], propagation_s=time.perf_counter() - t0,
+            labels_equal_fault_free=same)
+        check(tot["converged"] and bt["converged"] and same,
+              f"crowded faults ({schedule}): labels differ from the "
+              f"fault-free labels")
+        check(tot["failures"] == 4 and tot["replayed"] > 0,
+              f"crowded faults ({schedule}): {tot['failures']} failures, "
+              f"{tot['replayed']} replayed")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -247,6 +484,9 @@ def main() -> int:
         from repro_torch.core import faults as F
         from repro_torch.core import graph as G
         from repro_torch.core import merger as M
+        from repro_torch.core.programs import get_program
+        from repro_torch.dist import exchange as X
+        from repro_torch.dist import latency as L
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
@@ -350,14 +590,20 @@ def main() -> int:
     cfg_pr = get_graph_config("asymp_pagerank")
     g_pr = G.build_sharded_graph(cfg_pr)
     pg_pr = ops.build_pulled_graph(g_pr)
+    # the crowded smoke's SSSP graph; its stream is the one min_plus pulls
+    cfg_sssp = crowd_sssp_config(GraphConfig)
+    g_sssp = G.build_sharded_graph(cfg_sssp)
+    pg_sssp = ops.build_pulled_graph(g_sssp)
     streams = {"RMAT 2^18": pg.edge_dst_local,
-               "RMAT 2^14": pg_pr.edge_dst_local}
+               "RMAT 2^14": pg_pr.edge_dst_local,
+               "RMAT 2^12": pg_sssp.edge_dst_local}
 
     forms = []
     # the main path's forms first: BSP's min on int32 labels and the
     # oracle's plus_times, both without weights; then the weighted sweep,
     # the tensor-core plus_times, the oracle's form on its 2^14 stream, and
-    # the tensor-core form unweighted on both streams (2^14: phase 6's)
+    # the tensor-core form unweighted on both streams (2^14: phase 6's),
+    # and the crowded smoke's weighted min_plus on its 2^12 stream
     for semiring, dtype, weighted, mxu, stream in [
             ("min", "int32", False, False, "RMAT 2^18"),
             ("plus_times", "float32", False, False, "RMAT 2^18")] + [
@@ -365,7 +611,8 @@ def main() -> int:
             ("plus_times", "float32", True, True, "RMAT 2^18"),
             ("plus_times", "float32", False, False, "RMAT 2^14"),
             ("plus_times", "float32", False, True, "RMAT 2^18"),
-            ("plus_times", "float32", False, True, "RMAT 2^14")]:
+            ("plus_times", "float32", False, True, "RMAT 2^14"),
+            ("min_plus", "float32", True, False, "RMAT 2^12")]:
         dst_s = streams[stream]
         n_e, n_b = len(dst_s), len(dst_s) // 512
         v, d, w = spmv_inputs(np, torch, rng, n_e, dtype, dst=dst_s)
@@ -573,7 +820,7 @@ def main() -> int:
     check(tot_f["failures"] == 4 and tot_f["replayed"] > 0,
           f"CC under failures: {tot_f['failures']} failures, "
           f"{tot_f['replayed']} replayed")
-    del st_f, labels
+    del st_f
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st_pf, tot_pf = E.run_to_convergence(cfg_pr, graph=g_pr, device=dev,
@@ -594,37 +841,101 @@ def main() -> int:
           f"pagerank under failures: {tot_pf['failures']} failures, "
           f"{tot_pf['replayed']} replayed")
     phase_s["faults"] = time.perf_counter() - t_phase
+
+    # ---- 8. the int16 wire ----
+    t_phase = time.perf_counter()
+    wire_phase(np, torch, E, G, X, get_graph_config, dev)
+    phase_s["wire"] = time.perf_counter() - t_phase
+
+    # ---- 9. crowded cluster at full width (§5.4) ----
+    t_phase = time.perf_counter()
+    cfg_crowd = dataclasses.replace(cfg_large, **SLOWDOWN)
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = E.EngineSession(cfg_crowd, graph=graph, device=dev)
+    tot_c = sess.tick_until_quiescent()
+    torch.cuda.synchronize()
+    crowd_s = time.perf_counter() - t0
+    crowd_launches = dict(K.spmv_partials.launches_by_form)
+    in_flight = int(X.ring_pending(sess.ring))
+    same = torch.equal(sess.state.values.reshape(-1)[
+        : graph.num_real_vertices], labels)
+    say("crowded_main", config=cfg_crowd.name, slowdown=SLOWDOWN,
+        latency=sess.latency.describe(), ticks=tot_c["ticks"],
+        messages=tot_c["sent"], fault_free_ticks=cc_ticks,
+        degradation=tot_c["ticks"] / cc_ticks, propagation_s=crowd_s,
+        fault_free_propagation_s=prop_s, wall_time_ratio=crowd_s / prop_s,
+        ms_per_tick=crowd_s / tot_c["ticks"] * 1e3,
+        pending=tot_c["pending"], ring_in_flight=in_flight,
+        labels_equal_main_path=same, converged=tot_c["converged"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        kernel_launches=crowd_launches)
+    check(tot_c["converged"] and same,
+          "crowded asymp_cc_large: labels differ from the main path's")
+    check(tot_c["pending"] == 0 and in_flight == 0,
+          f"crowded asymp_cc_large: {in_flight} messages left in the ring")
+    del sess, labels
+    say("crowded_tick_profile", **window_profile(
+        torch, E.EngineSession(cfg_crowd, graph=graph, device=dev),
+        CROWDED_WARM_TICKS))
+    say("async_tick_profile", schedule="async", **window_profile(
+        torch, E.EngineSession(cfg_crowd, graph=graph, device=dev,
+                               schedule="async"), ASYNC_WARM_TICKS))
+    phase_s["crowded_main"] = time.perf_counter() - t_phase
+
+    # ---- 10. bench_crowded --smoke on the card ----
+    t_phase = time.perf_counter()
+    smoke_launches = crowded_smoke_phase(np, torch, E, K, L, R, ops,
+                                         cfg_sssp, g_sssp, pg_sssp,
+                                         get_program, dev)
+    phase_s["crowded_smoke"] = time.perf_counter() - t_phase
+
+    # ---- 11. kills and slowdowns on the crowded config, sync and async ----
+    t_phase = time.perf_counter()
+    crowded_faults_phase(torch, E, F, G, get_graph_config, dev)
+    phase_s["crowded_faults"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 8. kernels line, card, last line ----
+    # ---- 12. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 
-    def entry(name, form, n_launch, err):
+    # launches on the script's paths: the main path, pagerank, faults, the
+    # crowded main path (none: the engine tick has no kernel) and the
+    # crowded smoke's min_plus pull
+    paths = (launches, pr_launches, fault_launches, crowd_launches,
+             smoke_launches)
+
+    by_form = {k: sum(path.get(k, 0) for path in paths)
+               for k in sorted({k for path in paths for k in path})}
+
+    def entry(name, form, keys, err):
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": n_launch,
+                "replaces": replaces,
+                "launches": sum(by_form[k] for k in keys),
                 "max_abs_err": err, "ms": form["ms"],
                 "plain_ms": form["plain_ms"], "bound_ms": form["bound_ms"],
                 "bound_by": form["bound_by"],
-                "library_ms": form["library_ms"]}
+                "library_ms": form["library_ms"],
+                "launches_by_form": {k: by_form[k] for k in keys}}
 
-    # launches on the script's paths: the main path, pagerank, faults
-    paths = (launches, pr_launches, fault_launches)
     idem = entry("spmv_partials[min,max,min_plus,max_min,or] "
-                 "(BSP path: min/int32)", forms[0],
-                 sum(n for path in paths for k, n in path.items()
-                     if not k.startswith("plus_times")),
+                 "(BSP path: min/int32; crowded smoke: min_plus/float32)",
+                 forms[0], [k for k in by_form
+                            if not k.startswith("plus_times")],
                  worst["idempotent"])
     idem["forms"] = [f for f in forms[1:] if f["semiring"] != "plus_times"]
     pt = entry("spmv_partials[plus_times] (pagerank oracle)", forms[1],
-               sum(path.get("plus_times/float32", 0) for path in paths),
+               [k for k in by_form if k == "plus_times/float32"],
                worst["plus_times"])
     pt["forms"] = [f for f in forms[2:] if f["semiring"] == "plus_times"
                    and not f["tensor_cores"]]
     mxu_form = next(f for f in forms if f["tensor_cores"])
     mxu = entry("spmv_partials[plus_times, use_mxu=True] (tensor cores; "
                 "pagerank pull step)", mxu_form,
-                sum(path.get("plus_times_mxu/float32", 0) for path in paths),
+                [k for k in by_form if k == "plus_times_mxu/float32"],
                 worst["plus_times_mxu"])
     mxu["replaces"] = "src/repro/kernels/semiring_spmv.py:80"
     mxu["forms"] = [f for f in forms if f["tensor_cores"]

@@ -1,9 +1,9 @@
 """The ASYMP engine: priority-driven asynchronous-style propagation ticks.
 
-Counterpart of ``repro.core.engine`` on its plain synchronous path.  One
-tick, for all shards at once (tensors carry the shard axis first:
-``[P, vs]`` vertex state, ``[P, M, D]`` fetch windows, ``[P, Pn, cap]``
-send buffers — the JAX package's ``vmap`` written out as a batch axis):
+Counterpart of ``repro.core.engine`` on the local transport.  One tick,
+for all shards at once (tensors carry the shard axis first: ``[P, vs]``
+vertex state, ``[P, M, D]`` fetch windows, ``[P, Pn, cap]`` send buffers —
+the JAX package's ``vmap`` written out as a batch axis):
 
   select   — per-shard priority queue: bucketized priorities (linear/log,
              §3.5), enforcement fraction rho (§5.6), top-M cap
@@ -19,13 +19,22 @@ instead: a selected vertex latches its residual, banks it into
 ``values`` exactly once, and ships only the edge prefix its cursor
 commits to; receives scatter-add into the residual plane (``aux``).
 
+Three tick builders share those phases: ``make_local_tick`` (the plain
+synchronous tick), ``make_crowded_tick`` (paper §5.4: messages cross the
+delay ring, crowded shards get throttled budgets, work activated over a
+slow link is demoted) and ``make_async_tick`` (no tick barrier: each
+shard fires on its own seeded steps and keeps a logical clock).
+``EngineSession`` drives any of them, with fault plans
+(``core/faults.py``) and their slowdowns.
+
 The states and counters after every tick are bitwise those of the JAX
 package on the CPU (``tests/test_torch_engine.py``,
-``tests/test_torch_pagerank.py``).  ``EngineSession`` drives fault plans
-(``core/faults.py``).  Not ported yet (each raises
-``NotImplementedError`` where a caller asks for it): the crowded-cluster
-ring, fault-injected slowdowns, the async schedule, the multi-rank tick
-and the serving hooks of ``EngineSession`` (ROADMAP queue 1).
+``tests/test_torch_pagerank.py``, ``tests/test_torch_crowded.py``,
+``tests/test_torch_async.py``).  Not ported yet: the multi-rank ticks
+``make_dist_tick``, ``make_crowded_dist_tick``, ``make_async_dist_tick``
+and ``lower_tick_for_mesh`` (ROADMAP queue 1, item 12) and the serving
+hooks of ``EngineSession`` (``fork``, ``replace_state``, ``rebind_graph``,
+``rebase_recovery``; item 11).
 """
 from __future__ import annotations
 
@@ -84,6 +93,9 @@ class EngineParams:
     priority_scale: float  # normalization for bucketing
     wire_compression: str = "none"  # effective wire mode (pre-gated)
     wire_value_bound: int = 0  # int-payload bound gating lossless narrowing
+    # straggler-aware scheduling (crowded and async ticks only): bucket
+    # penalty for frontier work activated over a slow link (0 = off)
+    straggler_demote: int = 0
 
 
 def wire_codec(prog, ep: EngineParams) -> ex_mod.WireCodec:
@@ -114,7 +126,8 @@ def derive_params(cfg: GraphConfig, *, num_shards: int, vs: int, es: int,
         degree_window=d_cap, route_capacity=int(cap),
         enforce_fraction=cfg.enforce_fraction, priority=cfg.priority,
         priority_scale=prog.priority_scale or float(num_vertices),
-        wire_compression=wire, wire_value_bound=bound)
+        wire_compression=wire, wire_value_bound=bound,
+        straggler_demote=getattr(cfg, "straggler_demote", 0))
 
 
 def default_params(cfg: GraphConfig, graph: ShardedGraph,
@@ -189,11 +202,24 @@ def _drop_scatter(target: torch.Tensor, idx: torch.Tensor,
 
 
 def _phase1_create(prog, ep: EngineParams, values, active, cursor,
-                   row_ptr, col_idx, weights, aux=None):
+                   row_ptr, col_idx, weights, aux=None, throttle=None,
+                   demote=None, stream_window=None):
     """Select + fetch + create + route for all P shards.  Returns
     ``(active, cursor, send_vals [P, Pn, cap], send_ids [P, Pn, cap],
     sent [P], fetched [P], values, aux)``; values and aux change only in
     push mode (``aux`` given).
+
+    Crowded-cluster and async inputs, each per shard (all optional):
+      * ``throttle [P]`` — work-budget divisor: a crowded shard selects at
+        most ``M // throttle`` vertices a tick;
+      * ``demote [P, vs]`` bool — frontier work activated over a slow link
+        takes a bucket penalty of ``ep.straggler_demote``, so settled work
+        drains first; the threshold still selects it when nothing
+        healthier remains, so nothing starves;
+      * ``stream_window [P]`` — edges fetched per selected vertex this call
+        (``<= ep.degree_window``): the async schedule compiles a widened
+        window and passes ``rate * D``, so one firing of a rate-k shard
+        streams k steps' worth of edges.
 
     Push mode: a selected vertex not mid-push (latch 0 AND cursor 0)
     latches ``m = residual``, zeroes the residual and banks ``values +=
@@ -216,7 +242,11 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
     # bucket histogram + cumsum threshold + rank-by-cumsum (no [vs] sort)
     n_active = active.sum(dim=1, dtype=_I32)  # [P]
     target = torch.clamp(torch.ceil(n_active.to(torch.float32)
-                                    * ep.enforce_fraction), 1, M).to(_I32)
+                                    * ep.enforce_fraction), 1, M)
+    if throttle is not None:  # m_eff = max(M // throttle, 1), per shard
+        m_eff = torch.clamp(M // torch.clamp(throttle, min=1), min=1)
+        target = torch.minimum(target, m_eff.to(torch.float32))
+    target = target.to(_I32)
     # push mode ranks by pending mass: residual + latched push
     potential = residual + pushv if push_mode else values
     if prog.bucketize is not None:
@@ -225,6 +255,9 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
         pkey = prog.aggregator.priority_key(prog.priority_value(potential),
                                             ep.priority_scale)
         buckets = priority_buckets(pkey, ep.priority, ep.priority_scale)
+    if demote is not None and ep.straggler_demote:
+        buckets = torch.where(demote, torch.clamp(
+            buckets + ep.straggler_demote, max=N_BUCKETS - 1), buckets)
     hist = torch.zeros((P, N_BUCKETS), dtype=_I32, device=dev).scatter_add_(
         1, buckets.to(torch.int64), active.to(_I32))
     cum = torch.cumsum(hist, dim=1, dtype=_I32)
@@ -265,6 +298,8 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
     eidx = (lo + cur)[:, :, None] + offs  # [P, M, D]
     edge_valid = sel_valid[:, :, None] & ((cur[:, :, None] + offs)
                                           < deg[:, :, None])
+    if stream_window is not None:
+        edge_valid = edge_valid & (offs < stream_window[:, None, None])
     eidx_safe = torch.clamp(eidx, 0, col_idx.shape[1] - 1
                             ).reshape(P, M * D).to(torch.int64)
     dst = torch.where(edge_valid,
@@ -305,6 +340,11 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
     dropped = edge_valid & ~keep
     first_drop = torch.where(dropped.any(dim=2),
                              torch.argmax(dropped.to(_I32), dim=2), D)
+    if stream_window is not None:
+        # the cursor stops at the window even with no routing drop: edges
+        # past it were never fetched this call
+        first_drop = torch.minimum(first_drop,
+                                   stream_window[:, None].to(torch.int64))
     if push_mode:  # exactly-once: ship only the prefix the cursor passes
         keep = keep & (offs < first_drop[:, :, None])
     # one spare slot per destination row takes every unkept message
@@ -390,6 +430,24 @@ def _phase2_receive_push(prog, ep: EngineParams, residual, active,
 # ======================================================================
 # Local (single-device) execution
 # ======================================================================
+def _receive(prog, ep: EngineParams, push_mode: bool, values, active,
+             cursor, aux, recv_vals, recv_ids):
+    """Phase 2 for all shards.  Returns ``(values, active, cursor, aux,
+    accepted, old_plane, new_plane)``: the plane a receive writes (values,
+    or push mode's residual ``aux[:, 0]``) before and after it, which the
+    straggler demotion compares."""
+    if push_mode:
+        old_plane = aux[:, 0]
+        residual, active, accepted = _phase2_receive_push(
+            prog, ep, old_plane, active, recv_vals, recv_ids)
+        aux = torch.stack([residual, aux[:, 1]], dim=1)
+        return values, active, cursor, aux, accepted, old_plane, residual
+    old_plane = values
+    values, active, cursor, accepted = _phase2_receive(
+        prog, ep, values, active, cursor, recv_vals, recv_ids)
+    return values, active, cursor, aux, accepted, old_plane, values
+
+
 def make_local_tick(prog, ep: EngineParams, weighted: bool):
     """``tick(state, g) -> (state', TickStats, (send_vals, send_ids))``:
     one tick of all shards, exchanged by the local transport.  Push-mode
@@ -404,19 +462,218 @@ def make_local_tick(prog, ep: EngineParams, weighted: bool):
             g.col_idx, w, aux=state.aux if push_mode else None)
         # exchange: send[p][q] -> recv[q][p] via the dist substrate
         rv, ri = ex_mod.exchange_local(codec, sv, si)
-        if push_mode:
-            residual, active, accepted = _phase2_receive_push(
-                prog, ep, aux[:, 0], active, rv, ri)
-            aux = torch.stack([residual, aux[:, 1]], dim=1)
-        else:
-            values, active, cursor, accepted = _phase2_receive(
-                prog, ep, values, active, cursor, rv, ri)
-            aux = state.aux  # None, or an untouched caller-supplied plane
+        # aux of an idempotent program: None, or an untouched caller plane
+        values, active, cursor, aux, accepted, _, _ = _receive(
+            prog, ep, push_mode, values, active, cursor,
+            aux if push_mode else state.aux, rv, ri)
         stats = TickStats(active.sum(), sent.sum(), accepted.sum(),
                           fetched.sum())
         return (EngineState(values=values, active=active, cursor=cursor,
                             tick=state.tick + 1, aux=aux),
                 stats, (sv, si))
+
+    return tick
+
+
+# ======================================================================
+# Crowded-cluster emulation (paper §5.4): deferred delivery, throttled
+# budgets and straggler-aware scheduling
+# ======================================================================
+class CrowdedState(NamedTuple):
+    core: EngineState
+    ring: ex_mod.DelayRing  # in-flight messages (the emulated slow wire)
+    demote: torch.Tensor  # [P, vs] bool — frontier work to deprioritize
+
+
+class CrowdedStats(NamedTuple):
+    base: TickStats
+    pending: torch.Tensor  # messages still in flight in the delay ring
+    shard_fetched: torch.Tensor  # [P] edges fetched per shard this tick
+    shard_recv: torch.Tensor  # [P] messages processed per shard this tick
+
+
+def init_crowded_state(prog, ep: EngineParams, graph: ShardedGraph,
+                       max_delay: int,
+                       device: DeviceLike = None) -> CrowdedState:
+    dev = resolve_device(device)
+    return CrowdedState(
+        init_state(prog, graph, dev),
+        ex_mod.init_delay_ring(max_delay, ep.num_shards, ep.num_shards,
+                               ep.route_capacity, prog.identity,
+                               prog.tdtype, dev),
+        torch.zeros((ep.num_shards, ep.vs), dtype=torch.bool, device=dev))
+
+
+def _demote_row(agg, ep: EngineParams, new_values, old_values, recv_ids,
+                slow_rows):
+    """Every shard's ``[vs]`` demotion mask at once: vertices whose value
+    improved this tick AND that a message over a slow (delay > 0) link
+    targeted (``slow_rows [P, rows]`` flags the slow receive rows).
+    Recomputed every tick, so repeated slow arrivals keep deferring the
+    work while fresh local work cannot be starved."""
+    changed = agg.improves(new_values, old_values)  # [P, vs]
+    idx = torch.where((recv_ids >= 0) & slow_rows[:, :, None], recv_ids,
+                      ep.vs)
+    slow_targets = _drop_scatter(torch.zeros_like(changed),
+                                 idx.reshape(idx.shape[0], -1), True)
+    return changed & slow_targets
+
+
+def _slow_recv_rows(ep: EngineParams, num_rows: int, delays):
+    """``[Pn, num_rows]`` — for each receiver q, which delivered rows (row
+    ``l * P + p`` is sender p's ring slot l) crossed a slow link."""
+    sender = torch.arange(num_rows, device=delays.device) % ep.num_shards
+    return (delays[sender, :] > 0).T
+
+
+def _next_demote(prog, ep: EngineParams, new_plane, old_plane, recv_ids,
+                 delays, demote):
+    if not ep.straggler_demote:
+        return torch.zeros_like(demote)
+    slow_rows = _slow_recv_rows(ep, recv_ids.shape[1], delays)
+    return _demote_row(prog.aggregator, ep, new_plane, old_plane, recv_ids,
+                       slow_rows)
+
+
+def make_crowded_tick(prog, ep: EngineParams, weighted: bool):
+    """Local-transport tick under emulated crowding.
+
+    ``tick(cstate, g, delays, throttle)`` with ``delays [P, Pn]`` and
+    ``throttle [P]`` int32 tensors (from a ``dist.latency`` model, raised
+    per tick by a plan's slowdown), so the cluster condition may change
+    mid-run.  Sends are parked in the delay ring and delivered when due;
+    convergence needs an empty frontier AND an empty ring
+    (``stats.pending == 0``)."""
+    codec = wire_codec(prog, ep)
+    push_mode = not prog.aggregator.idempotent
+
+    def tick(cstate: CrowdedState, g: ShardGraph, delays, throttle):
+        state = cstate.core
+        w = g.weights if weighted else None
+        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
+            prog, ep, state.values, state.active, state.cursor, g.row_ptr,
+            g.col_idx, w, aux=state.aux if push_mode else None,
+            throttle=throttle, demote=cstate.demote)
+        # messages from slow links surface ticks later, healthy links
+        # deliver at once
+        rv, ri, ring, pending = ex_mod.exchange_local_delayed(
+            codec, cstate.ring, sv, si, state.tick, delays, prog.identity)
+        values, active, cursor, aux, accepted, old_plane, new_plane = \
+            _receive(prog, ep, push_mode, values, active, cursor,
+                     aux if push_mode else state.aux, rv, ri)
+        demote = _next_demote(prog, ep, new_plane, old_plane, ri, delays,
+                              cstate.demote)
+        stats = TickStats(active.sum(), sent.sum(), accepted.sum(),
+                          fetched.sum())
+        cstats = CrowdedStats(stats, pending, fetched,
+                              (ri >= 0).sum(dim=(1, 2)))
+        core = EngineState(values=values, active=active, cursor=cursor,
+                           tick=state.tick + 1, aux=aux)
+        return CrowdedState(core, ring, demote), cstats, (sv, si)
+
+    return tick
+
+
+# ======================================================================
+# Asynchronous (barrier-free) execution: per-shard progress clocks
+# ======================================================================
+class AsyncState(NamedTuple):
+    """``core.tick`` stays the emulated wall-clock step (it keys the ring
+    slots and the firing pattern); ``clock [P]`` counts each shard's
+    firings, the progress that recovery cuts and the metrics read."""
+    core: EngineState
+    ring: ex_mod.DelayRing  # in-flight messages (arrivals queue here)
+    demote: torch.Tensor  # [P, vs] bool — carried until the shard fires
+    clock: torch.Tensor  # [P] int32 — firings incorporated into `core`
+
+
+class AsyncStats(NamedTuple):
+    base: TickStats
+    pending: torch.Tensor  # messages still in flight (all shards)
+    shard_active: torch.Tensor  # [P] frontier size per shard
+    shard_pending: torch.Tensor  # [P] in-flight messages bound for shard
+    clock: torch.Tensor  # [P] logical clocks after this step
+
+
+def async_ring_delay(max_delay: int, max_stall: int) -> int:
+    """Ring sizing for the async schedule, as a ``max_delay``-equivalent: a
+    message due at step ``t`` waits up to ``max_stall - 1`` steps for its
+    receiver to fire, so the ring needs ``max_delay + max_stall`` slots
+    (the synchronous ``max_delay + 1`` would let a send overwrite a
+    due-but-unconsumed row)."""
+    return max_delay + max(int(max_stall), 1) - 1
+
+
+def init_async_state(prog, ep: EngineParams, graph: ShardedGraph,
+                     ring_delay: int,
+                     device: DeviceLike = None) -> AsyncState:
+    """``ring_delay`` comes from :func:`async_ring_delay`."""
+    cstate = init_crowded_state(prog, ep, graph, ring_delay, device)
+    return AsyncState(cstate.core, cstate.ring, cstate.demote,
+                      torch.zeros((ep.num_shards,), dtype=_I32,
+                                  device=cstate.demote.device))
+
+
+def make_async_tick(prog, ep: EngineParams, weighted: bool):
+    """Barrier-free step over the local transport.
+
+    ``tick(astate, g, delays, fire, window=None)`` — ``fire [P]`` bool is
+    the step's seeded firing mask (``dist.latency.AsyncInterleaving``),
+    ``window [P]`` the live per-shard edge window.  A firing shard drains
+    its due ring arrivals, selects with its full budget (the throttle is
+    a firing rate here, not a budget divisor) and sends; a shard that does
+    not fire keeps its state, sends nothing, its inbound due rows stay
+    parked (``recv_gate``) and it carries its demotions to its next
+    firing.  Convergence: every shard's frontier empty AND its inbound
+    ring drained (``shard_active + shard_pending == 0``)."""
+    codec = wire_codec(prog, ep)
+    push_mode = not prog.aggregator.idempotent
+
+    def tick(astate: AsyncState, g: ShardGraph, delays, fire, window=None):
+        state = astate.core
+        w = g.weights if weighted else None
+        if window is None:  # the full static window for every shard
+            window = torch.full((ep.num_shards,), ep.degree_window,
+                                dtype=_I32, device=fire.device)
+        active1, cursor1, sv, si, sent, fetched, values1, aux1 = \
+            _phase1_create(prog, ep, state.values, state.active,
+                           state.cursor, g.row_ptr, g.col_idx, w,
+                           aux=state.aux if push_mode else None,
+                           demote=astate.demote, stream_window=window)
+        # only firing shards advance; the rest keep their state verbatim
+        # and send nothing this step
+        fire_v, fire_b = fire[:, None], fire[:, None, None]
+        values = torch.where(fire_v, values1, state.values)
+        active = torch.where(fire_v, active1, state.active)
+        cursor = torch.where(fire_v, cursor1, state.cursor)
+        aux = torch.where(fire_b, aux1, state.aux) if push_mode else state.aux
+        sv = torch.where(fire_b, sv, prog.identity)
+        si = torch.where(fire_b, si, -1)
+        sent = torch.where(fire, sent, 0)
+        fetched = torch.where(fire, fetched, 0)
+        # park sends, pop keyed on the receivers: a due row surfaces only
+        # on a step its destination shard fires
+        rv, ri, ring, pending = ex_mod.exchange_local_delayed(
+            codec, astate.ring, sv, si, state.tick, delays, prog.identity,
+            recv_gate=fire)
+        # a gated receiver's rows arrive empty, and the receive is an
+        # exact no-op on empty rows: phase 2 needs no fire mask
+        values, active, cursor, aux, accepted, old_plane, new_plane = \
+            _receive(prog, ep, push_mode, values, active, cursor, aux, rv,
+                     ri)
+        demote = _next_demote(prog, ep, new_plane, old_plane, ri, delays,
+                              astate.demote)
+        if ep.straggler_demote:
+            demote = torch.where(fire_v, demote, astate.demote)
+        clock = astate.clock + fire.to(_I32)
+        inflight = (ring.ids >= 0) & (ring.due >= 0)[..., None]
+        stats = TickStats(active.sum(), sent.sum(), accepted.sum(),
+                          fetched.sum())
+        astats = AsyncStats(stats, pending, active.sum(dim=1),
+                            inflight.sum(dim=(0, 1, 3)), clock)
+        core = EngineState(values=values, active=active, cursor=cursor,
+                           tick=state.tick + 1, aux=aux)
+        return AsyncState(core, ring, demote, clock), astats, (sv, si)
 
     return tick
 
@@ -464,19 +721,43 @@ def to_device_graph(graph: ShardedGraph,
         put(graph.weights, np.float32) if graph.weights is not None else None)
 
 
+def _to_host(*tensors) -> list:
+    """A tick's counters in one device-to-host transfer: a 0-dim tensor
+    comes back as an int, any other as a list of ints."""
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]
+                     ).tolist()
+    out, i = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[i] if t.dim() == 0 else flat[i:i + n])
+        i += n
+    return out
+
+
 class EngineSession:
-    """A resumable engine run on the plain synchronous path: the host-side
-    loop behind :func:`run_to_convergence` (tick a few steps, read the
-    state, tick again).
+    """A resumable engine run: the host-side loop behind
+    :func:`run_to_convergence` (tick a few steps, read the state, tick
+    again), on one of three paths:
+
+      * plain — the synchronous tick;
+      * crowded — ``latency`` (a ``dist.latency.LatencyModel``; None
+        resolves one from ``cfg.latency_profile``) or a ``fault_plan``
+        that injects slowdowns: messages cross the delay ring, crowded
+        shards get throttled budgets, and quiescence also needs the ring
+        drained;
+      * async — ``schedule="async"`` (None resolves ``cfg.schedule``):
+        each shard fires on its own seeded steps, advancing a per-shard
+        clock; quiescent when every shard's frontier and inbound ring
+        rows are empty.
 
     ``fault_plan`` (a ``core.faults.FaultPlan``) kills shards on the
-    plan's host steps; after each tick the session records the tick in
-    the ``FaultManager``, then lets it fail and recover shards, as the JAX
-    package orders it.  The JAX package's session also drives the
-    crowded-cluster ring, fault-injected slowdowns and the async
-    schedule; those are not ported yet, and asking for one raises
-    ``NotImplementedError`` rather than running without it.
-    ``device=None`` means the CUDA card (raises if there is none).
+    plan's host steps; after each tick the session records the tick in the
+    ``FaultManager``, cuts the ring checkpoint, then lets the manager fail
+    and recover shards, as the JAX package orders it.  Each tick's
+    counters come to the host in one transfer.  ``device=None`` means the
+    CUDA card (raises if there is none).  The serving hooks of the JAX
+    package's session (``fork``, ``replace_state``, ``rebind_graph``,
+    ``rebase_recovery``) are not ported (ROADMAP queue 1, item 11).
     """
 
     def __init__(self, cfg: GraphConfig, *,
@@ -485,23 +766,14 @@ class EngineSession:
                  collect_log: bool = False, fault_plan=None, latency=None,
                  schedule: Optional[str] = None,
                  device: DeviceLike = None):
+        from repro_torch.core import faults
+        from repro_torch.dist import latency as lat_mod
         schedule = schedule or getattr(cfg, "schedule", "sync") or "sync"
         if schedule not in ("sync", "async"):
             raise ValueError(f"unknown schedule {schedule!r}; "
                              f"valid: 'sync', 'async'")
-        missing = []
-        if fault_plan is not None and fault_plan.slow_fraction > 0:
-            missing.append("fault injection with slowdowns (slow_fraction "
-                           "> 0) needs the crowded-cluster emulation "
-                           "(ROADMAP queue 1, item 8)")
-        if latency is not None or cfg.latency_profile != "none":
-            missing.append("crowded-cluster emulation (ROADMAP queue 1, "
-                           "item 8)")
-        if schedule == "async":
-            missing.append("the async schedule (ROADMAP queue 1, item 9)")
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
         self.device = resolve_device(device)
+        self._faults = faults
         self.cfg = cfg
         self.graph = graph or build_sharded_graph(cfg)
         self.prog = prog or prog_mod.get_program(cfg)
@@ -510,33 +782,140 @@ class EngineSession:
         self.collect_log = collect_log
         self.schedule = schedule
         self.fault_plan = fault_plan
+        if latency is None and cfg.latency_profile != "none":
+            latency = lat_mod.from_config(cfg)
+        self.latency = latency
+        self.crowded = (latency is not None
+                        or faults.injects_slowdown(fault_plan))
+        self.max_delay = (max(latency.max_delay if latency else 0,
+                              faults.max_injected_delay(fault_plan))
+                          if self.crowded else 0)
         self.log: list = []
         self.totals = {"ticks": 0, "sent": 0, "accepted": 0, "fetched": 0,
                        "replayed": 0, "failures": 0, "pending": 0,
                        "schedule": schedule}
-        self._t = 0  # host step counter
-        self._init_plain()
+        self._t = 0  # host step counter (fault schedules key on it)
+        self._pending = 0
+        self._ring_ckpt = None
+        self._conditions: dict = {}
+        if schedule == "async":
+            self._init_async(lat_mod)
+        elif self.crowded:
+            self._init_crowded()
+        else:
+            self._init_plain()
+
+    # -- mode setup ----------------------------------------------------
+    def _fault_manager(self, ep: EngineParams, replay_slack: int):
+        # replay recovery must reach back past the checkpoint by every
+        # step a message can spend parked in the ring: deferred messages
+        # straddling the snapshot are otherwise in neither the restored
+        # state nor the replayed range
+        if self.fault_plan is None:
+            return None
+        return self._faults.FaultManager(self.cfg, self.graph, self.prog,
+                                         ep, replay_slack=replay_slack,
+                                         device=self.device)
+
+    def _base_conditions(self) -> None:
+        P_ = self.graph.num_shards
+        lat = self.latency
+        self._base_delays = (lat.delays if lat
+                             else np.zeros((P_, P_), np.int32))
+        self._base_throttle = (lat.throttle if lat
+                               else np.ones((P_,), np.int32))
 
     def _init_plain(self) -> None:
-        from repro_torch.core import faults
-        self.fault_mgr = (faults.FaultManager(self.cfg, self.graph,
-                                              self.prog, self.ep,
-                                              device=self.device)
-                          if self.fault_plan is not None else None)
+        self.ep_run = self.ep
+        self.fault_mgr = self._fault_manager(self.ep, 0)
         self._tick_fn = make_local_tick(self.prog, self.ep,
                                         self.prog.weighted)
         self._state = init_state(self.prog, self.graph, self.device)
         self._n_active = int(torch.sum(self._state.active))
+
+    def _init_crowded(self) -> None:
+        self.ep_run = self.ep
+        self.fault_mgr = self._fault_manager(self.ep, self.max_delay)
+        self._base_conditions()
+        self._tick_fn = make_crowded_tick(self.prog, self.ep,
+                                          self.prog.weighted)
+        self._cstate = init_crowded_state(self.prog, self.ep, self.graph,
+                                          self.max_delay, self.device)
+        self._n_active = int(torch.sum(self._cstate.core.active))
+
+    def _init_async(self, lat_mod) -> None:
+        cfg, plan = self.cfg, self.fault_plan
+        self._base_conditions()
+        self._inter = lat_mod.make_interleaving(
+            self.graph.num_shards, rates=self._base_throttle,
+            seed=getattr(cfg, "async_seed", 0),
+            jitter=getattr(cfg, "async_jitter", False))
+        plan_rate = (plan.slow_intensity
+                     if self._faults.injects_slowdown(plan) else 1)
+        max_stall = self._inter.stall_bound(plan_rate)
+        self._ring_delay = async_ring_delay(self.max_delay, max_stall)
+        # one firing of a rate-k shard stands in for k barrier steps, so it
+        # carries k steps' worth of edge window and routing room: compile
+        # the widened window and caps once (the largest rate of the profile
+        # and any injected slowdown) and pass the live per-shard window each
+        # step.  A healthy run (r_all == 1) keeps the sync-shaped params and
+        # is bitwise the barrier schedule.
+        self._r_all = max(int(np.asarray(self._base_throttle).max(initial=1)),
+                          plan_rate, 1)
+        self.ep_run = (dataclasses.replace(
+            self.ep, degree_window=self.ep.degree_window * self._r_all,
+            route_capacity=self.ep.route_capacity * self._r_all)
+            if self._r_all > 1 else self.ep)
+        # a pre-checkpoint send can also sit due-but-unconsumed until its
+        # receiver fires
+        self.fault_mgr = self._fault_manager(self.ep_run,
+                                             self.max_delay + max_stall)
+        self._tick_fn = make_async_tick(self.prog, self.ep_run,
+                                        self.prog.weighted)
+        self._astate = init_async_state(self.prog, self.ep_run, self.graph,
+                                        self._ring_delay, self.device)
+        # host mirrors of the device tick and the clock vector: the firing
+        # pattern is keyed on the device tick, which a checkpoint restore
+        # rewinds, and reading it back would cost a sync every step
+        self._dev_tick = 0
+        self._clock = [0] * self.graph.num_shards
+        self._shard_busy = self._astate.core.active.sum(dim=1).tolist()
+        self._n_active = sum(self._shard_busy)
+
+    def _device_conditions(self, delays, throttle):
+        """Device copies of one cluster condition — delays clipped to the
+        ring, throttle, and the async edge window — made once per array
+        pair: ``apply_slowdown`` hands back the same arrays for every tick
+        of its window."""
+        key = (id(delays), id(throttle))
+        hit = self._conditions.get(key)
+        if hit is None:
+            put = lambda a: torch.as_tensor(  # noqa: E731
+                np.asarray(a, np.int32), device=self.device)
+            window = (put(np.minimum(np.asarray(throttle, np.int64),
+                                     self._r_all) * self.ep.degree_window)
+                      if self.schedule == "async" else None)
+            # the arrays ride in the entry to keep their ids alive
+            hit = self._conditions[key] = (
+                delays, throttle, put(np.minimum(delays, self.max_delay)),
+                put(throttle), window)
+        return hit[2:]
+
+    # -- per-tick drivers (bookkeeping order mirrors across all three:
+    # totals, fault handling, log entry) --------------------------------
+    def _count(self, sent: int, accepted: int, fetched: int) -> None:
+        totals = self.totals
+        totals["ticks"] += 1
+        totals["sent"] += sent
+        totals["accepted"] += accepted
+        totals["fetched"] += fetched
 
     def _step_plain(self) -> None:
         t, fault_mgr = self._t, self.fault_mgr
         state, stats, send_bufs = self._tick_fn(self._state, self.g)
         n_active = int(stats.active)
         totals = self.totals
-        totals["ticks"] += 1
-        totals["sent"] += int(stats.sent)
-        totals["accepted"] += int(stats.accepted)
-        totals["fetched"] += int(stats.fetched)
+        self._count(int(stats.sent), int(stats.accepted), int(stats.fetched))
         if fault_mgr is not None:
             # the kill schedule is keyed on the host step, as in the JAX
             # package
@@ -554,19 +933,172 @@ class EngineSession:
         self._state = state
         self._n_active = n_active
 
+    def _step_crowded(self) -> None:
+        t, fault_plan, fault_mgr = self._t, self.fault_plan, self.fault_mgr
+        delays, throttle, _ = self._device_conditions(
+            *self._faults.apply_slowdown(fault_plan, t, self._base_delays,
+                                         self._base_throttle))
+        cstate, cstats, send_bufs = self._tick_fn(self._cstate, self.g,
+                                                  delays, throttle)
+        stats = cstats.base
+        work = ((cstats.shard_fetched + cstats.shard_recv,)
+                if self.collect_log else ())
+        n_active, sent, accepted, fetched, pending, *shard_work = _to_host(
+            stats.active, stats.sent, stats.accepted, stats.fetched,
+            cstats.pending, *work)
+        self._count(sent, accepted, fetched)
+        totals = self.totals
+        if fault_mgr is not None:
+            fault_mgr.record(t, cstate.core, send_bufs)
+            if (fault_mgr.recovery == "checkpoint"
+                    and t % fault_mgr.ckpt_every == 0):
+                # a global restore rolls every shard back to the snapshot;
+                # its consistent cut must hold the messages in flight
+                # (their senders' cursors have advanced, so they are never
+                # sent again) and the device tick (ring slots are keyed by
+                # tick % ring_len).  The ring is functional, so these
+                # references keep it as it stands now.
+                self._ring_ckpt = (cstate.ring, cstate.demote,
+                                   cstate.core.tick)
+            core, extra = fault_mgr.maybe_fail(t, cstate.core, fault_plan)
+            cstate = cstate._replace(core=core)
+            if extra["failures"] and fault_mgr.recovery == "checkpoint":
+                if self._ring_ckpt is not None:
+                    ring, demote, snap_tick = self._ring_ckpt
+                    cstate = CrowdedState(core._replace(tick=snap_tick),
+                                          ring, demote)
+                else:  # no snapshot yet -> the run re-inits: empty ring
+                    cstate = init_crowded_state(
+                        self.prog, self.ep, self.graph, self.max_delay,
+                        self.device)._replace(core=core._replace(
+                            tick=torch.zeros_like(core.tick)))
+                pending = int(ex_mod.ring_pending(cstate.ring))
+            totals["replayed"] += extra["replayed"]
+            totals["failures"] += extra["failures"]
+            if extra["failures"]:
+                n_active = int(torch.sum(cstate.core.active))
+        if self.collect_log:
+            self.log.append({"tick": t, "active": n_active, "sent": sent,
+                             "accepted": accepted, "fetched": fetched,
+                             "pending": pending,
+                             "shard_work": shard_work[0]})
+        self._cstate = cstate
+        self._n_active = n_active
+        self._pending = pending
+
+    def _step_async(self) -> None:
+        t, fault_plan, fault_mgr = self._t, self.fault_plan, self.fault_mgr
+        # the firing pattern and the slowdown windows are keyed on the
+        # DEVICE tick (its host mirror), not the host step: a checkpoint
+        # restore rewinds the device tick, and the ring-sizing guarantee
+        # (a due row is consumed within max_stall steps of its slot's
+        # reuse) holds only if the pattern is a function of device time
+        dev_tick = self._dev_tick
+        delays_np, throttle_np = self._faults.apply_slowdown(
+            fault_plan, dev_tick, self._base_delays, self._base_throttle)
+        fire_np = self._inter.fire_mask(dev_tick, rates=throttle_np)
+        delays, _, window = self._device_conditions(delays_np, throttle_np)
+        fire = torch.as_tensor(fire_np, device=self.device)
+        astate, astats, send_bufs = self._tick_fn(self._astate, self.g,
+                                                  delays, fire, window)
+        stats = astats.base
+        (n_active, sent, accepted, fetched, pending, shard_active,
+         shard_pending) = _to_host(
+            stats.active, stats.sent, stats.accepted, stats.fetched,
+            astats.pending, astats.shard_active, astats.shard_pending)
+        shard_busy = [a + b for a, b in zip(shard_active, shard_pending)]
+        self._dev_tick += 1
+        self._clock = [c + int(f) for c, f in zip(self._clock, fire_np)]
+        self._count(sent, accepted, fetched)
+        totals = self.totals
+        if fault_mgr is not None:
+            fault_mgr.record(t, astate.core, send_bufs, clock=self._clock)
+            if (fault_mgr.recovery == "checkpoint"
+                    and t % fault_mgr.ckpt_every == 0):
+                # the cut under per-shard clocks: (state, ring, wall-clock
+                # step, clock vector) at the snapshot instant, with the
+                # host mirrors of the last two
+                self._ring_ckpt = (astate.ring, astate.demote,
+                                   astate.core.tick, astate.clock,
+                                   self._dev_tick, list(self._clock))
+            core, extra = fault_mgr.maybe_fail(t, astate.core, fault_plan,
+                                               clock=self._clock)
+            astate = astate._replace(core=core)
+            if "clock" in extra:
+                astate = astate._replace(clock=extra["clock"])
+                self._clock = extra["clock"].tolist()
+            if extra["failures"] and fault_mgr.recovery == "checkpoint":
+                if self._ring_ckpt is not None:
+                    (ring, demote, snap_tick, snap_clock, self._dev_tick,
+                     clock) = self._ring_ckpt
+                    self._clock = list(clock)
+                    astate = AsyncState(core._replace(tick=snap_tick),
+                                        ring, demote, snap_clock)
+                else:  # no snapshot yet -> the run re-inits: empty ring
+                    astate = init_async_state(
+                        self.prog, self.ep_run, self.graph,
+                        self._ring_delay, self.device)._replace(
+                        core=core._replace(tick=torch.zeros_like(core.tick)))
+                    self._dev_tick = 0
+                    self._clock = [0] * self.graph.num_shards
+                pending = int(ex_mod.ring_pending(astate.ring))
+            totals["replayed"] += extra["replayed"]
+            totals["failures"] += extra["failures"]
+            if extra["failures"]:
+                inflight = ((astate.ring.ids >= 0)
+                            & (astate.ring.due >= 0)[..., None])
+                busy = (astate.core.active.sum(dim=1)
+                        + inflight.sum(dim=(0, 1, 3)))
+                n_active, shard_busy = _to_host(astate.core.active.sum(),
+                                                busy)
+        if self.collect_log:
+            self.log.append({
+                "tick": t, "active": n_active, "sent": sent,
+                "accepted": accepted, "fetched": fetched, "pending": pending,
+                "fired": fire_np.astype(int).tolist(),
+                "clock": list(self._clock), "shard_active": shard_active,
+                "shard_pending": shard_pending})
+        self._astate = astate
+        self._n_active = n_active
+        self._pending = pending
+        self._shard_busy = shard_busy
+
     # -- public surface ------------------------------------------------
     @property
     def state(self) -> EngineState:
+        """The core engine state (ring and clock planes stay internal)."""
+        if self.schedule == "async":
+            return self._astate.core
+        if self.crowded:
+            return self._cstate.core
         return self._state
 
     @property
+    def ring(self) -> Optional[ex_mod.DelayRing]:
+        """The delay ring of the crowded and async paths (None on the
+        plain path)."""
+        if self.schedule == "async":
+            return self._astate.ring
+        return self._cstate.ring if self.crowded else None
+
+    @property
     def quiescent(self) -> bool:
-        """No frontier anywhere."""
+        """No frontier anywhere and, on the ring paths, every delivery
+        drained; async: every shard's frontier and inbound ring empty."""
+        if self.schedule == "async":
+            return max(self._shard_busy, default=0) == 0
+        if self.crowded:
+            return self._n_active == 0 and self._pending == 0
         return self._n_active == 0
 
     def step(self) -> None:
         """Run exactly one engine tick (plus its fault bookkeeping)."""
-        self._step_plain()
+        if self.schedule == "async":
+            self._step_async()
+        elif self.crowded:
+            self._step_crowded()
+        else:
+            self._step_plain()
         self._t += 1
 
     def tick_until_quiescent(self, budget: Optional[int] = None) -> dict:
@@ -583,9 +1115,14 @@ class EngineSession:
         return self.totals_snapshot()
 
     def totals_snapshot(self) -> dict:
-        """The metrics dict ``run_to_convergence`` returns."""
+        """The metrics dict ``run_to_convergence`` returns (ring paths add
+        ``pending``, the async schedule the ``clock`` vector)."""
         out = dict(self.totals)
+        if self.crowded or self.schedule == "async":
+            out["pending"] = self._pending
         out["converged"] = self.quiescent
+        if self.schedule == "async":
+            out["clock"] = list(self._clock)
         out["log"] = self.log
         return out
 
@@ -598,7 +1135,8 @@ def run_to_convergence(cfg: GraphConfig, *,
                        fault_plan=None, latency=None,
                        schedule: Optional[str] = None,
                        device: DeviceLike = None):
-    """Host loop (the propagation phase).  Returns (state, metrics dict)."""
+    """Host loop (the propagation phase).  Returns (state, metrics dict).
+    See :class:`EngineSession` for ``latency`` and ``schedule``."""
     session = EngineSession(cfg, graph=graph, prog=prog, params=params,
                             collect_log=collect_log, fault_plan=fault_plan,
                             latency=latency, schedule=schedule, device=device)

@@ -1,7 +1,7 @@
 """Fault injection and recovery for the ASYMP engine (paper §3.4, §5.5).
 
-Counterpart of ``repro.core.faults`` on the plain synchronous path.  The
-paper's mechanism, in three steps:
+Counterpart of ``repro.core.faults``.  The paper's mechanism, in three
+steps:
 
   1. writing checkpoints — every ``checkpoint_every`` ticks, a snapshot of
      each shard's vertex state (values, frontier, cursors, push planes);
@@ -26,9 +26,14 @@ is the JAX package's: a snapshot at ``t % checkpoint_every == 0``, the
 log of the last ``replay_log_ticks + replay_slack + 1`` ticks (replay
 recovery only).
 
-Not ported yet: the slowdown overlay ``apply_slowdown`` (ROADMAP queue 1,
-item 8), ``FaultManager.rebase`` (item 11) and the async ``clock``
-argument (item 9).
+A plan may also crowd shards (``slow_fraction > 0``): ``apply_slowdown``
+overlays its window onto the latency model's delays and throttles, which
+the session feeds to the crowded or async tick.  Under deferred delivery
+the replay window reaches back past the snapshot by ``replay_slack``
+(the largest link delay, plus the stall bound for the async schedule),
+and an async run's snapshots carry each shard's logical ``clock``.
+
+Not ported yet: ``FaultManager.rebase`` (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -98,13 +103,46 @@ def injects_slowdown(plan: Optional[FaultPlan]) -> bool:
     return plan.slow_delay > 0 or plan.slow_intensity > 1
 
 
+def apply_slowdown(plan: Optional[FaultPlan], t: int, delays: np.ndarray,
+                   throttle: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Overlay a plan's slowdown window onto the base cluster condition.
+
+    Inside [slow_start, slow_stop) the crowded shards' outgoing link delays
+    and throttles are raised to the plan's values (``max`` against the
+    base, never lowered); outside it the base arrays pass through.  The
+    overlay is made once and cached on the plan, keyed on every field it
+    reads (a plan mutated between runs gets a fresh overlay) and on the
+    base arrays' identity, so every tick of a window gets the same arrays
+    (the session keys its device copies on that identity)."""
+    if (plan is None or plan.slow_fraction <= 0
+            or t < plan.slow_start
+            or (plan.slow_stop and t >= plan.slow_stop)):
+        return delays, throttle
+    key = (plan.slow_fraction, plan.slow_delay, plan.slow_intensity,
+           plan.seed)
+    cache = getattr(plan, "_overlay_cache", None)
+    if (cache is None or cache[0] != key or cache[1] is not delays
+            or cache[2] is not throttle):
+        d = delays.copy()
+        th = throttle.copy()
+        for p in plan.slow_shards(delays.shape[0]):
+            d[p, :] = np.maximum(d[p, :], plan.slow_delay)
+            th[p] = max(int(th[p]), int(plan.slow_intensity))
+        cache = (key, delays, throttle, d, th)
+        plan._overlay_cache = cache
+    return cache[3], cache[4]
+
+
 class FaultManager:
     """Snapshots, the message log and recovery for one run.
 
     ``ckpt`` maps a shard to its snapshot rows ``(values, active, cursor,
     aux | None)``, ``ckpt_tick`` holds each shard's snapshot step (-1 =
     none) and ``msg_log`` maps a step to its ``(send_vals, send_ids)``
-    ``[P, Pn, cap]`` buffers, all as tensors on ``device``."""
+    ``[P, Pn, cap]`` buffers, all as tensors on ``device``.  An async
+    run's snapshots also record each shard's logical clock (``ckpt_clock``,
+    host ints): the consistent cut under per-shard progress is a vector."""
 
     def __init__(self, cfg: GraphConfig, graph, prog, ep: EngineParams,
                  replay_slack: int = 0, device: DeviceLike = None):
@@ -120,6 +158,7 @@ class FaultManager:
         self.replay_slack = replay_slack
         self.ckpt_tick = np.full(graph.num_shards, -1, np.int64)
         self.ckpt: dict[int, tuple] = {}
+        self.ckpt_clock: dict[int, int] = {}
         self.msg_log: dict[int, tuple] = {}
         self._schedule: Optional[dict[int, list[int]]] = None
         self._boundary: Optional[torch.Tensor] = None
@@ -142,10 +181,14 @@ class FaultManager:
                         for t, (sv, si) in msg_log.items()}
 
     # ------------------------------------------------------------------
-    def record(self, t: int, state: EngineState, send_bufs) -> None:
+    def record(self, t: int, state: EngineState, send_bufs,
+               clock=None) -> None:
         """After host step ``t``'s tick: snapshot on checkpoint steps, and
-        log the tick's send buffers (replay recovery only)."""
+        log the tick's send buffers (replay recovery only).  ``clock``
+        (async runs): the host's ``[P]`` clock vector after the tick."""
         if t % self.ckpt_every == 0:
+            if clock is not None:
+                self.ckpt_clock = {p: int(c) for p, c in enumerate(clock)}
             vals, act, cur = (x.clone() for x in (state.values,
                                                    state.active,
                                                    state.cursor))
@@ -161,16 +204,31 @@ class FaultManager:
                 if old < t - (self.log_ticks + self.replay_slack):
                     del self.msg_log[old]
 
-    def maybe_fail(self, t: int, state: EngineState, plan: FaultPlan):
+    def maybe_fail(self, t: int, state: EngineState, plan: FaultPlan,
+                   clock=None):
         """Fail and recover the shards the plan kills at host step ``t``.
-        Returns ``(state, {"failures": n, "replayed": messages})``."""
+        Returns ``(state, {"failures": n, "replayed": messages})``.
+
+        ``clock`` (async runs): the current ``[P]`` clock vector.  After a
+        failure ``extra["clock"]`` holds the recovered vector as an int32
+        tensor: a replayed shard rolls back to its own snapshot entry (the
+        others keep theirs), a global restore rolls the whole vector back."""
         if self._schedule is None:
             self._schedule = plan.schedule(self.graph.num_shards)
         extra = {"failures": 0, "replayed": 0}
+        new_clock = None if clock is None else [int(c) for c in clock]
         for p in self._schedule.get(t, []):
             state, replayed = self.fail_shard(t, state, p)
             extra["failures"] += 1
             extra["replayed"] += replayed
+            if new_clock is not None:
+                rolled = (range(self.graph.num_shards)
+                          if self.recovery == "checkpoint" else (p,))
+                for q in rolled:
+                    new_clock[q] = self.ckpt_clock.get(q, 0)
+        if new_clock is not None and extra["failures"]:
+            extra["clock"] = torch.tensor(new_clock, dtype=torch.int32,
+                                          device=self.device)
         return state, extra
 
     def fail_shard(self, t: int, state: EngineState, p: int
@@ -248,9 +306,10 @@ class FaultManager:
     # ------------------------------------------------------------------
     def _global_restore(self, state: EngineState) -> EngineState:
         """Every shard rolls back to the last snapshot, aux planes
-        included (snapshots are taken between ticks, so no message is in
-        flight at the restore point); with no snapshot yet, the run
-        re-initializes."""
+        included; with no snapshot yet, the run re-initializes.  On the
+        immediate transport no message is in flight between ticks; under
+        deferred delivery the session restores the delay ring and the
+        device tick from the same instant."""
         if not self.ckpt:
             return init_state(self.prog, self.graph,
                               self.device)._replace(tick=state.tick)

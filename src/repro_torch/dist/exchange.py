@@ -1,4 +1,4 @@
-"""The exchange substrate: the wire-mode gate, the codec and the local transport.
+"""The exchange substrate: the wire-mode gate, the codec and the local transports.
 
 Counterpart of ``repro.dist.exchange``.  The engine produces, per shard, a
 pair of send buffers ``(values [Pn, cap], ids [Pn, cap])`` — row ``q``
@@ -6,13 +6,25 @@ holds the messages bound for shard ``q``, ``ids`` are destination-local
 vertex slots (-1 = empty).  Delivery is a shard transpose: receiver ``q``
 ends with row ``p`` from every sender ``p``.
 
-This slice ports the **local** transport (all shards in one ``[P, Pn, cap]``
-tensor, delivered by ``transpose(0, 1)``) and the raw wire mode ``none``.
-``effective_compression`` — the single wire-safety decision point — is
-ported whole, so configs gate to the same mode as in the JAX package; a
-codec whose gated mode is ``int16``/``int8`` refuses to encode instead of
-shipping raw data (ROADMAP queue 1, item 6).  The multi-rank transport and
-the deferred-delivery ring wait for their slices (items 12 and 8).
+Ported here: the **local** transport (all shards in one ``[P, Pn, cap]``
+tensor, delivered by ``transpose(0, 1)``), its deferred-delivery flavour
+for crowded-cluster emulation (``DelayRing``, ``exchange_local_delayed``)
+and the whole wire codec: ``none`` (raw int32 values and ids) and
+``int16``/``int8`` (ints narrowed losslessly below a sentinel, floats
+row-quantized in the aggregator's rounding direction, ids as int16 when
+the shard width fits; ``dist/compression.py``).
+``effective_compression`` is the single wire-safety decision point.  The
+multi-rank transports (``exchange_dist``, ``exchange_dist_delayed``) wait
+for ROADMAP queue 1, item 12.
+
+**Deferred delivery.**  A send buffer produced at tick ``t`` for link
+``p -> q`` is parked in a :class:`DelayRing` and delivered at tick
+``t + delays[p, q]``.  The ring is indexed by send tick modulo its length
+with an explicit due tick per row, so time-varying delays never overwrite
+a message in flight.  Messages are only deferred, never dropped, so the
+self-stabilizing programs converge to the same fixpoint.  The ring is
+kept functional (each tick builds new tensors, nothing is written in
+place), so a snapshot that holds a ring holds it as it stood.
 
 Layer contract: ``repro_torch.dist`` sits below ``repro_torch.core`` and
 imports nothing above it.
@@ -20,9 +32,11 @@ imports nothing above it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.dist import compression as C
 
 _INT_SENTINEL = {8: 127, 16: 32767}
 
@@ -70,30 +84,47 @@ class WireCodec:
     compress_ids: bool  # ids as int16 (requires vs <= 32766)
     quantize_direction: str = "up"
 
-    def _require_raw(self) -> None:
-        if self.compression != "none":
-            raise NotImplementedError(
-                f"wire mode {self.compression!r} is not ported yet "
-                "(ROADMAP queue 1, item 6: dist/compression.py); only "
-                "'none' encodes")
+    @property
+    def bits(self) -> int:
+        return 8 if self.compression == "int8" else 16
 
     def encode(self, vals: torch.Tensor
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        self._require_raw()
-        return vals, None
+        if self.compression == "none":
+            return vals, None
+        if self.value_kind == "int32":
+            return C.narrow_int(vals, self.bits), None
+        return C.quantize_rows(vals, self.bits, self.quantize_direction)
 
     def decode(self, payload: torch.Tensor,
                scales: Optional[torch.Tensor]) -> torch.Tensor:
-        self._require_raw()
-        return payload
+        if self.compression == "none":
+            return payload
+        if self.value_kind == "int32":
+            return C.widen_int(payload, self.bits, self.identity,
+                               torch.int32)
+        return C.dequantize_rows(payload, scales, self.bits, self.identity,
+                                 torch.float32)
 
     def encode_ids(self, ids: torch.Tensor) -> torch.Tensor:
-        self._require_raw()
-        return ids
+        return ids.to(torch.int16) if self.compress_ids else ids
 
     def decode_ids(self, ids: torch.Tensor) -> torch.Tensor:
-        self._require_raw()
-        return ids
+        return ids.to(torch.int32) if self.compress_ids else ids
+
+    def wire_bytes_per_tick(self) -> int:
+        """Bytes crossing the wire per tick, all shard pairs: every slot of
+        the fixed-capacity buffers ships, and so does the float scale
+        sidecar."""
+        slots = self.num_shards * self.num_shards * self.capacity
+        if self.compression == "none":
+            val_b, id_b, scale_b = 4, 4, 0
+        else:
+            val_b = 1 if self.compression == "int8" else 2
+            id_b = 2 if self.compress_ids else 4
+            scale_b = 4 if self.value_kind == "float32" else 0
+        return (slots * (val_b + id_b)
+                + self.num_shards * self.num_shards * scale_b)
 
 
 def make_wire_codec(num_shards: int, capacity: int, vs: int,
@@ -125,3 +156,82 @@ def exchange_local(codec: WireCodec, send_vals: torch.Tensor,
     ri = enc_i.transpose(0, 1)
     rs = scales.transpose(0, 1) if scales is not None else None
     return codec.decode(rv, rs), codec.decode_ids(ri)
+
+
+# ======================================================================
+# Deferred delivery (crowded-cluster emulation — see module docstring)
+# ======================================================================
+class DelayRing(NamedTuple):
+    """In-flight messages of the local delayed transport:
+    ``vals/ids [ring_len, P, Pn, cap]``, ``due [ring_len, P, Pn]``
+    (``due == -1``: an empty or delivered row)."""
+
+    vals: torch.Tensor
+    ids: torch.Tensor
+    due: torch.Tensor
+
+
+def init_delay_ring(max_delay: int, num_senders: int, num_shards: int,
+                    capacity: int, identity, dtype: torch.dtype,
+                    device=None) -> DelayRing:
+    """An empty ring able to carry any per-link delay <= ``max_delay``."""
+    lead = (max_delay + 1, num_senders)
+    return DelayRing(
+        torch.full(lead + (num_shards, capacity), identity, dtype=dtype,
+                   device=device),
+        torch.full(lead + (num_shards, capacity), -1, dtype=torch.int32,
+                   device=device),
+        torch.full(lead + (num_shards,), -1, dtype=torch.int32,
+                   device=device))
+
+
+def ring_pending(ring: DelayRing) -> torch.Tensor:
+    """Messages still in flight (valid ids in rows not yet delivered)."""
+    return ((ring.ids >= 0) & (ring.due >= 0)[..., None]).sum()
+
+
+def _ring_push_pop(ring: DelayRing, send_vals, send_ids, tick, delays,
+                   identity, recv_gate=None):
+    """Park this tick's sends in slot ``tick % ring_len`` and surface every
+    row whose due tick has arrived (masked to empty otherwise), retiring
+    it.  ``recv_gate [Pn]`` (async schedule) surfaces a due row only on a
+    step its receiver fires; otherwise it stays parked.  Returns
+    ``(deliver_vals, deliver_ids, ring', pending)``; the deliverables keep
+    the full ring extent, with identity values and ids of -1 in rows not
+    due."""
+    L1 = ring.vals.shape[0]
+    slot = (tick % L1).reshape(1).to(torch.int64)
+    vals = ring.vals.index_copy(0, slot, send_vals[None])
+    ids = ring.ids.index_copy(0, slot, send_ids[None])
+    due = ring.due.index_copy(
+        0, slot, (tick + torch.clamp(delays, max=L1 - 1))[None].to(
+            torch.int32))
+    ready = (due >= 0) & (due <= tick)
+    if recv_gate is not None:
+        ready = ready & recv_gate  # [Pn] broadcasts onto the receiver axis
+    dv = torch.where(ready[..., None], vals, identity)
+    di = torch.where(ready[..., None], ids, -1)
+    ring = DelayRing(vals, ids, torch.where(ready, -1, due))
+    return dv, di, ring, ring_pending(ring)
+
+
+def exchange_local_delayed(codec: WireCodec, ring: DelayRing,
+                           send_vals: torch.Tensor, send_ids: torch.Tensor,
+                           tick, delays, identity, recv_gate=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, DelayRing,
+                                      torch.Tensor]:
+    """Deferred-delivery local transport.
+
+    ``send_vals/send_ids [P, Pn, cap]`` are parked in ``ring`` and every
+    due row is delivered through the same wire codec as the immediate
+    transport: receiver ``q`` gets ``[ring_len * P, cap]`` buffers whose
+    row ``l * P + p`` is sender ``p``'s buffer from ring slot ``l`` (the
+    demotion reads the sender as ``row % P``).  ``delays [P, Pn]`` may
+    change tick to tick; values above the ring's capacity clamp.
+    Returns ``(recv_vals, recv_ids, ring', pending)``."""
+    dv, di, ring, pending = _ring_push_pop(ring, send_vals, send_ids, tick,
+                                           delays, identity, recv_gate)
+    L1, P_ = dv.shape[0], dv.shape[1]
+    rv, ri = exchange_local(codec, dv.reshape((L1 * P_,) + dv.shape[2:]),
+                            di.reshape((L1 * P_,) + di.shape[2:]))
+    return rv, ri, ring, pending

@@ -2,16 +2,19 @@
 
 Counterpart of ``repro.launch.graph_mine`` with the same options, plus
 ``--device`` (default ``cuda``).  Runs the propagation phase to
-convergence, with optional rolling shard failures, and the merger phase;
-writes the output table and the metrics.  The options of slices not
-ported yet (crowded-cluster emulation, the async schedule) exit non-zero
-naming the missing piece.
+convergence, with optional rolling shard failures, crowded-cluster
+emulation (§5.4) and the barrier-free async schedule, and the merger
+phase; writes the output table and the metrics.
 
   python -m repro_torch.launch.graph_mine --config asymp_cc
   python -m repro_torch.launch.graph_mine --config asymp_sssp --out /tmp/sssp.tsv
   python -m repro_torch.launch.graph_mine --config asymp_cc --reduced --device cpu
   python -m repro_torch.launch.graph_mine --config asymp_pagerank \
       --failures 0.5 --device cpu   # checkpoint-restore recovery (SUM)
+  python -m repro_torch.launch.graph_mine --config asymp_cc_large \
+      --slowdown 0.5 --link-delay 2 --intensity 4   # crowded (stragglers)
+  python -m repro_torch.launch.graph_mine --config asymp_cc_crowded \
+      --reduced --schedule async --device cpu       # barrier-free
 """
 from __future__ import annotations
 
@@ -30,20 +33,7 @@ from repro_torch.core import graph as G
 from repro_torch.core import merger
 from repro_torch.core import programs as PR
 from repro_torch.core.faults import FaultPlan
-
-# options of later slices: flag -> what is missing
-_UNPORTED = {
-    "latency_profile": "--latency-profile needs the crowded-cluster "
-                       "emulation (ROADMAP queue 1, item 8)",
-    "slowdown": "--slowdown needs the crowded-cluster emulation "
-                "(ROADMAP queue 1, item 8)",
-    "link_delay": "--link-delay needs the crowded-cluster emulation "
-                  "(ROADMAP queue 1, item 8)",
-    "intensity": "--intensity needs the crowded-cluster emulation "
-                 "(ROADMAP queue 1, item 8)",
-    "async_seed": "--async-seed needs the async schedule "
-                  "(ROADMAP queue 1, item 9)",
-}
+from repro_torch.dist import latency as lat_mod
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -59,17 +49,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--priority", default=None)
     ap.add_argument("--enforce", type=float, default=None)
     ap.add_argument("--latency-profile", default=None,
-                    help="(not ported) crowded-cluster emulation profile")
+                    choices=sorted(lat_mod.PROFILES),
+                    help="crowded-cluster emulation profile (§5.4; "
+                         "dist/latency.py)")
     ap.add_argument("--slowdown", type=float, default=None,
-                    help="(not ported) fraction of shards crowded")
+                    help="fraction of shards crowded (implies "
+                         "--latency-profile stragglers unless given)")
     ap.add_argument("--link-delay", type=int, default=None,
-                    help="(not ported) extra wire ticks on crowded links")
+                    help="extra wire ticks on a crowded shard's links")
     ap.add_argument("--intensity", type=int, default=None,
-                    help="(not ported) work-budget divisor for crowded shards")
+                    help="work-budget divisor for crowded shards")
     ap.add_argument("--schedule", default=None, choices=("sync", "async"),
-                    help="sync = BSP tick barrier (async is not ported)")
+                    help="sync = BSP tick barrier; async = barrier-free "
+                         "per-shard progress (seeded interleaving)")
     ap.add_argument("--async-seed", type=int, default=None,
-                    help="(not ported) seed for the async interleaving")
+                    help="seed for the async interleaving (determinism)")
     ap.add_argument("--reduced", action="store_true",
                     help="run the config's tiny .reduced() variant "
                          "(CI smoke)")
@@ -80,20 +74,8 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    missing = [msg for flag, msg in _UNPORTED.items()
-               if getattr(args, flag) is not None]
-    if args.schedule == "async":
-        missing.append("--schedule async needs the async schedule "
-                       "(ROADMAP queue 1, item 9)")
-    if missing:
-        sys.exit("[graph_mine] not ported to repro_torch yet: "
-                 + "; ".join(missing))
-
-
 def main(argv=None) -> None:
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:  # no card: say so instead of a traceback
@@ -109,20 +91,25 @@ def main(argv=None) -> None:
         kw["algorithm"] = args.algorithm
     if args.source is not None:
         kw["source"] = args.source
+    if args.slowdown is not None:
+        kw["slow_fraction"] = args.slowdown
+        if args.latency_profile is None and cfg.latency_profile == "none":
+            kw["latency_profile"] = "stragglers"
+    if args.latency_profile is not None:
+        kw["latency_profile"] = args.latency_profile
+    if args.link_delay is not None:
+        kw["link_delay"] = args.link_delay
+    if args.intensity is not None:
+        kw["slow_intensity"] = args.intensity
     if args.schedule is not None:
         kw["schedule"] = args.schedule
+    if args.async_seed is not None:
+        kw["async_seed"] = args.async_seed
     if kw:
         cfg = dataclasses.replace(cfg, **kw)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.latency_profile != "none":
-        sys.exit(f"[graph_mine] config {cfg.name} needs the crowded-cluster "
-                 f"emulation, not ported to repro_torch yet (ROADMAP queue "
-                 f"1, item 8)")
-    try:
-        prog = PR.get_program(cfg)
-    except NotImplementedError as e:
-        sys.exit(f"[graph_mine] {e}")
+    prog = PR.get_program(cfg)
     if prog.weighted and not cfg.weighted:
         # weighted programs need edge weights on the graph
         cfg = dataclasses.replace(cfg, weighted=True)
@@ -140,14 +127,14 @@ def main(argv=None) -> None:
 
     plan = (FaultPlan(fail_fraction=args.failures, start_tick=4, every=6)
             if args.failures > 0 else None)
+    if cfg.latency_profile != "none":
+        print(f"[graph_mine] crowded-cluster emulation: "
+              f"{lat_mod.from_config(cfg).describe()} "
+              f"(straggler_demote={cfg.straggler_demote})")
     t0 = time.time()
-    try:
-        state, totals = E.run_to_convergence(cfg, graph=graph, prog=prog,
-                                             fault_plan=plan,
-                                             collect_log=True,
-                                             device=device)
-    except NotImplementedError as e:
-        sys.exit(f"[graph_mine] {e}")
+    state, totals = E.run_to_convergence(cfg, graph=graph, prog=prog,
+                                         fault_plan=plan, collect_log=True,
+                                         device=device)
     wall = time.time() - t0
     print(f"[graph_mine] propagation: {totals['ticks']} ticks, "
           f"{totals['sent']} messages, {totals['failures']} failures, "

@@ -213,9 +213,14 @@ def test_wire_codec_and_exchange_parity():
                     max_int_value=50, idempotent=True)
         jc, tc = JX.make_wire_codec(**args), TX.make_wire_codec(**args)
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
-        if mode != "none":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tc.encode(torch.zeros(4, 4, 16, dtype=torch.int32))
+        # every mode encodes now (tests/test_torch_wire.py holds the bits)
+        labels = np.arange(64, dtype=np.int32).reshape(4, 16)
+        enc, scales = tc.encode(torch.from_numpy(labels))
+        assert scales is None and enc.dtype == {
+            "none": torch.int32, "int16": torch.int16,
+            "int8": torch.int8}[mode]
+        _bitwise(jc.decode(*jc.encode(jnp.asarray(labels))),
+                 tc.decode(enc, scales), f"{mode} round trip")
     rng = np.random.default_rng(3)
     sv = rng.integers(0, 100, (4, 4, 16)).astype(np.int32)
     si = rng.integers(-1, 100, (4, 4, 16)).astype(np.int32)
@@ -230,12 +235,9 @@ def test_wire_codec_and_exchange_parity():
 
 
 def _params_match(jep, tep):
-    """Every field of the port's EngineParams equals the JAX package's;
-    the JAX package's only other field is the crowded tick's bucket
-    penalty, which the port's plain tick does not read."""
-    j, t = dataclasses.asdict(jep), dataclasses.asdict(tep)
-    assert set(j) - set(t) == {"straggler_demote"}
-    assert {k: j[k] for k in t} == t
+    """The port's EngineParams equal the JAX package's, field for field
+    (the crowded tick's bucket penalty ``straggler_demote`` included)."""
+    assert dataclasses.asdict(jep) == dataclasses.asdict(tep)
 
 
 @pytest.mark.parametrize("name", sorted(j_cfgs.CONFIGS))
@@ -376,17 +378,40 @@ def test_bench_speed_smoke_counts():
 
 
 @pytest.mark.parametrize("kw,match", [
-    # a plan's slowdowns need the crowded ring; its kills are ported
+    # a plan's slowdowns and a latency model route onto the crowded tick;
+    # schedule="async" onto the async tick (``match``: what the refusal
+    # named while the option was unported)
     (dict(fault_plan=TF.FaultPlan(0.5, slow_fraction=0.5, slow_delay=2)),
      "fault injection"),
-    (dict(latency=object()), "crowded"),
+    (dict(latency="stragglers"), "crowded"),
     (dict(schedule="async"), "async"),
 ])
 def test_session_refuses_unported(rmat_cc_graph, kw, match):
-    cfg_j, _ = rmat_cc_graph
+    """Nothing of these is refused any more (the test keeps the name it
+    had while each was): each option builds the session path the JAX
+    package's session builds (async for ``schedule="async"``, else
+    crowded), and a crowded config runs to the JAX package's totals."""
+    from repro.core import faults as JF
+    from repro.dist import latency as JL
+    from repro_torch.dist import latency as TL
+    cfg_j, jg = rmat_cc_graph
     tc = TCfg(**dataclasses.asdict(cfg_j))
-    with pytest.raises(NotImplementedError, match=match):
-        TE.EngineSession(tc, device="cpu", **kw)
+    tg = TG.ShardedGraph.from_arrays(
+        jg.row_ptr, jg.col_idx, jg.weights, jg.edge_counts, jg.boundary,
+        num_real_vertices=jg.num_real_vertices)
+    jkw = dict(kw)
+    if "fault_plan" in kw:
+        jkw["fault_plan"] = JF.FaultPlan(0.5, slow_fraction=0.5, slow_delay=2)
+    if "latency" in kw:
+        jkw["latency"] = JL.make_latency_model(kw["latency"], 4)
+        kw = dict(latency=TL.make_latency_model(kw["latency"], 4))
+    t = TE.EngineSession(tc, graph=tg, device="cpu", **kw)
+    j = JE.EngineSession(cfg_j, graph=jg, **jkw)
+    assert (t.crowded, t.schedule, t.max_delay) == \
+        (j.crowded, j.schedule, j.max_delay)
+    assert (match == "async") == (t.schedule == "async") != t.crowded
     crowded = dataclasses.replace(tc, latency_profile="stragglers")
-    with pytest.raises(NotImplementedError, match="crowded"):
-        TE.run_to_convergence(crowded, device="cpu")
+    _, tt = TE.run_to_convergence(crowded, graph=tg, device="cpu")
+    _, jt = JE.run_to_convergence(dataclasses.replace(
+        cfg_j, latency_profile="stragglers"), graph=jg)
+    assert tt == jt and tt["converged"] and tt["pending"] == 0

@@ -37,7 +37,7 @@ PR = dict(name="t-pr", algorithm="pagerank", num_vertices=512, avg_degree=5,
           generator="rmat", num_shards=8, enforce_fraction=0.5,
           checkpoint_every=4)
 TOTALS = ("ticks", "sent", "accepted", "fetched", "failures", "replayed",
-          "converged", "log")
+          "pending", "converged", "log")
 
 
 def _np(x):
@@ -101,15 +101,18 @@ def test_slowdown_helpers_match_jax():
 
 
 def test_slowdown_plan_refused():
-    """Slowdowns need the crowded-cluster emulation: refused, never run
-    without it."""
-    _, tc, _, tg = _pair(CC_SMALL)
-    plan = TF.FaultPlan(0.5, slow_fraction=0.5, slow_delay=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TE.EngineSession(tc, graph=tg, fault_plan=plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="slow_fraction"):
-        TE.run_to_convergence(tc, graph=tg, device="cpu",
-                              fault_plan=TF.FaultPlan(0.0, slow_fraction=0.1))
+    """Slowdowns are no longer refused: a plan with ``slow_fraction > 0``
+    runs on the crowded tick, kills and slowdowns composed, and ends with
+    the JAX package's state and totals (a throttle-only plan too)."""
+    for plan in (dict(fail_fraction=0.5, slow_fraction=0.5, slow_delay=2),
+                 dict(fail_fraction=0.0, slow_fraction=0.1,
+                      slow_intensity=3)):
+        state, totals, g = _run_both(CC_SMALL, plan)
+        assert totals["converged"] and totals["pending"] == 0
+        assert totals["failures"] == round(plan["fail_fraction"] * 4)
+        labels = TM.extract(state, g, TP.get_program("cc"))
+        assert np.array_equal(labels, TG.cc_oracle(g.num_real_vertices,
+                                                   TG.edge_list(g)))
 
 
 def test_recovery_routed_by_program():

@@ -2,8 +2,9 @@
 on random and on destination-sorted streams, and the tensor-core
 ``plus_times`` on random, sorted and crafted dst layouts) against their
 plain version, the main
-path against its CPU run, pagerank against its verdict and fault recovery
-against its CPU run.
+path against its CPU run, pagerank against its verdict, fault recovery
+against its CPU run, the crowded and async ticks against their CPU runs
+and the int16/int8 wire codec against its CPU calls.
 
 Every test carries the ``gpu`` marker and skips on a host without a CUDA
 card (decided in the ``cuda`` fixture, not at import).  On a machine with
@@ -21,6 +22,7 @@ from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import faults as F  # noqa: E402
 from repro_torch.core import graph as G  # noqa: E402
 from repro_torch.core import merger as M  # noqa: E402
+from repro_torch.dist import compression as C  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import semiring_spmv as K  # noqa: E402
@@ -321,3 +323,55 @@ def test_cc_faults_match_cpu(cuda):
         assert t_gpu[k] == t_cpu[k], k
     assert t_gpu["failures"] == 4 and t_gpu["replayed"] > 0
     assert torch.equal(s_gpu.values.cpu(), s_cpu.values)
+
+
+@pytest.mark.parametrize("algorithm", ["cc", "sssp"])
+@pytest.mark.parametrize("schedule", ["sync", "async"])
+@pytest.mark.parametrize("faults", [False, True])
+def test_crowded_and_async_match_cpu(cuda, algorithm, schedule, faults):
+    """The crowded tick (sync) and the async tick on the card, healthy or
+    under kills and slowdowns: min scatters are exact, so the totals with
+    their per-tick log and the final state equal the CPU run's."""
+    cfg = GraphConfig(name="t", algorithm=algorithm, num_vertices=1024,
+                      avg_degree=8, generator="rmat", num_shards=4,
+                      priority="log", enforce_fraction=0.5, source=5,
+                      weighted=algorithm == "sssp",
+                      latency_profile="stragglers", schedule=schedule)
+    g = G.build_sharded_graph(cfg)
+    plan = (F.FaultPlan(0.5, start_tick=4, every=6, slow_fraction=0.5,
+                        slow_delay=3, slow_intensity=4) if faults else None)
+    s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda,
+                                        fault_plan=plan, collect_log=True)
+    s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu",
+                                        fault_plan=plan, collect_log=True)
+    assert t_gpu == t_cpu and t_gpu["converged"] and t_gpu["pending"] == 0
+    for f in ("values", "active", "cursor", "tick"):
+        assert torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f)), f
+    if faults:
+        assert t_gpu["failures"] == 2 and t_gpu["replayed"] > 0
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+def test_wire_codec_on_card_matches_cpu(cuda, bits):
+    """Row quantization (both directions, ±inf, all-inf and all-zero rows)
+    and int narrowing on the card give the CPU's bits."""
+    rng = np.random.default_rng(bits)
+    vals = rng.uniform(-50, 50, (256, 96)).astype(np.float32)
+    vals[0, ::3], vals[1, 1::4], vals[2], vals[3] = np.inf, -np.inf, np.inf, 0
+    v_cpu = torch.from_numpy(vals)
+    for direction in ("up", "down"):
+        q_cpu, s_cpu = C.quantize_rows(v_cpu, bits, direction)
+        q_gpu, s_gpu = C.quantize_rows(v_cpu.to(cuda), bits, direction)
+        assert torch.equal(q_gpu.cpu(), q_cpu)
+        assert torch.equal(s_gpu.cpu(), s_cpu)
+        d_cpu = C.dequantize_rows(q_cpu, s_cpu, bits, np.inf, torch.float32)
+        d_gpu = C.dequantize_rows(q_gpu, s_gpu, bits, np.inf, torch.float32)
+        assert torch.equal(d_gpu.cpu(), d_cpu)
+    ints = torch.from_numpy(rng.integers(-1, 40_000, (64, 96))
+                            .astype(np.int32))
+    n_cpu = C.narrow_int(ints, bits)
+    n_gpu = C.narrow_int(ints.to(cuda), bits)
+    assert torch.equal(n_gpu.cpu(), n_cpu)
+    assert torch.equal(C.widen_int(n_gpu, bits, 2 ** 31 - 1,
+                                   torch.int32).cpu(),
+                       C.widen_int(n_cpu, bits, 2 ** 31 - 1, torch.int32))
