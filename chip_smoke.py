@@ -63,11 +63,34 @@ non-zero:
  11. ``crowded_faults``: ``asymp_cc_crowded`` (RMAT 2^14), sync and async,
      under kills plus slowdowns: labels equal the fault-free labels, 4
      failures, messages replayed;
- 12. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+ 12. ``elastic``: ``asymp_cc_large`` ticked 600 steps on 8 shards, saved
+     and restored through ``ft.checkpoint.CheckpointManager``, re-split
+     onto 4 shards (``ft.elastic.repartition_state``; the 4-shard graph
+     assembled from the 8-shard edge list) and converged: labels equal
+     phase 4's, and no more vertices active than the old cut plus those
+     active before;
+ 13. ``serve_main``, the serving plane at full width: what ``graph_serve
+     --config asymp_cc_large --programs cc,sssp --store <tmp> --queries 256
+     --deltas 4`` runs, through the classes: CC and SSSP converged and
+     published, 256 queries in 16 slots, 4 one-edge deltas streamed
+     through ``begin_delta`` -> ``step(2)`` -> ``commit`` with a query batch
+     between steps (``bench_load``'s closed loop): 0 torn reads, 0
+     rejections, lag at most 1; after the last commit CC equals the
+     kernel-backed BSP and SSSP the ``min_plus`` pull's fixpoint on the
+     patched graph, each kernel's launches equal their rounds, and each
+     round's partials equal the plain version's;
+ 14. ``serve_smoke``: the ``bench_serve --smoke`` and ``bench_load --smoke``
+     scenarios, their counts equal to ``benchmarks/baselines/
+     BENCH_{serve,load}.json`` (pagerank's delta held to the push_eps
+     ball, its counts beside the baseline's);
+ 15. ``serve_rank``: ``asymp_pagerank`` served with CC, 2 one-edge deltas,
+     each commit held to the pagerank verdict against the kernel-backed
+     dense oracle on the patched graph;
+ 16. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 before each path (4, 6, 7, 9, 10) and read
-after it.
+Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15)
+and read after it.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -78,6 +101,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -113,6 +137,18 @@ CROWDED_BASELINE = {"priority": (172, 201), "fifo": (270, 297),
 SLOWDOWN = dict(latency_profile="stragglers", slow_fraction=0.5,
                 link_delay=2, slow_intensity=4)
 CROWDED_WARM_TICKS, ASYNC_WARM_TICKS = 100, 20
+# elastic: asymp_cc_large ticked on 8 shards for 600 of its 1,246 ticks,
+# then re-split onto 4
+ELASTIC_TICKS, ELASTIC_SHARDS = 600, 4
+# graph_serve --queries 256 --deltas 4 with its 16 slots
+SERVE_QUERIES, SERVE_SLOTS, SERVE_DELTAS = 256, 16, 4
+# the smoke counts of benchmarks/baselines/BENCH_serve.json (delta1_cc:
+# reactivated % of V, lag ticks, scratch ticks, exact) and BENCH_load.json
+SERVE_CC_BASELINE = (0.024, 15, 154, 1)
+SERVE_PR_BASELINE = {"reactivated": 36, "lag_ticks": 391}
+LOAD_BASELINE = {"torn": 0, "rejected": 0, "lag_max": 1, "lag_final": 0,
+                 "deltas": 3, "served": 384}
+PPR_BASELINE = {"hits": 2, "misses": 2, "invalidations": 2}
 
 
 class SmokeFailure(Exception):
@@ -383,36 +419,16 @@ def crowded_smoke_phase(np, torch, E, K, L, R, ops, cfg, g, pg,
              for k in CROWDED_BASELINE}
     # the healthy distances against the min_plus pull to its fixpoint
     pg = pg.to(dev)
-    prog = get_program(cfg)
-    gids = torch.arange(n, dtype=torch.int32, device=dev)
-    v, _ = prog.init(gids, torch.ones(n, dtype=torch.bool, device=dev))
-    inputs = []  # each round's input values, for the check below
     K.reset_launch_counts()
-    while True:
-        inputs.append(v)
-        nxt = ops.frontier_pull_step(v, pg, semiring="min_plus")
-        if torch.equal(nxt, v):
-            break
-        v = nxt
+    v, inputs = min_plus_fixpoint(torch, ops, get_program(cfg), pg, n, dev)
     torch.cuda.synchronize()
     pull_launches = dict(K.spmv_partials.launches_by_form)
     rounds = len(inputs)
-    # the pull's own kernel inputs, round by round: the edge values it
-    # gathers, its dst stream and its weights (these launches are not the
-    # path's: the counts were read above)
-    pull_err, ident = 0.0, K._identity("min_plus", v.dtype)
-    src = pg.edge_src.long()
-    for vin in inputs:
-        vpad = torch.cat([vin, vin.new_full((pg.num_vertices - n,), ident)])
-        vals = torch.where(src >= 0, vpad[src.clamp(min=0)],
-                           vin.new_full((), ident))
-        kp = K.spmv_partials(vals, pg.edge_dst_local, pg.weights,
-                             semiring="min_plus")
-        rp = R.spmv_partials_ref(vals, pg.edge_dst_local, pg.weights,
-                                 semiring="min_plus")
-        pull_err = max(pull_err, max_abs_err(torch, kp, rp))
-        check(torch.equal(kp, rp), "min_plus differs from its plain version "
-                                   "on a pull round of the crowded smoke")
+    # the pull's own kernel inputs, round by round (these launches are not
+    # the path's: the counts were read above)
+    pull_err = max(hold_against_plain(torch, K, R, pg, vin, "min_plus",
+                                      "a pull round of the crowded smoke")
+                   for vin in inputs)
     say("crowded_smoke", config=cfg.name,
         ticks={f"{k}/{c}": res[k, c][0] for k, c in res},
         messages={f"{k}/{c}": res[k, c][1] for k, c in res},
@@ -468,6 +484,464 @@ def crowded_faults_phase(torch, E, F, G, get_graph_config, dev) -> None:
               f"{tot['replayed']} replayed")
 
 
+def hold_against_plain(torch, K, R, pg, vin, semiring, where) -> float:
+    """One pull round's kernel inputs (``vin`` gathered along ``pg``'s
+    stream) through the kernel and its plain version: bitwise equal, as
+    idempotent reduces are exact.  Returns the max abs error (0)."""
+    ident = K._identity(semiring, vin.dtype)
+    n = vin.shape[0]
+    vpad = torch.cat([vin, vin.new_full((pg.num_vertices - n,), ident)])
+    src = pg.edge_src.long()
+    vals = torch.where(src >= 0, vpad[src.clamp(min=0)],
+                       vin.new_full((), ident))
+    w = pg.weights if semiring == "min_plus" else None
+    kp = K.spmv_partials(vals, pg.edge_dst_local, w, semiring=semiring)
+    rp = R.spmv_partials_ref(vals, pg.edge_dst_local, w, semiring=semiring)
+    err = max_abs_err(torch, kp, rp)
+    check(torch.equal(kp, rp), f"{semiring} differs from its plain version "
+                               f"({where}): max abs err {err}")
+    return err
+
+
+def min_plus_fixpoint(torch, ops, prog, pg, n, dev):
+    """The ``min_plus`` pull iterated from the program's initial values to
+    its fixpoint: (distances, each round's input values)."""
+    gids = torch.arange(n, dtype=torch.int32, device=dev)
+    v, _ = prog.init(gids, torch.ones(n, dtype=torch.bool, device=dev))
+    inputs = []
+    while True:
+        inputs.append(v)
+        nxt = ops.frontier_pull_step(v, pg, semiring="min_plus")
+        if torch.equal(nxt, v):
+            return v, inputs
+        v = nxt
+
+
+def pct(xs, q):
+    """The q-th percentile of a list (nearest rank)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, -(-len(xs) * q // 100) - 1))] \
+        if xs else None
+
+
+class Loop:
+    """What one closed serving loop measured."""
+
+    def __init__(self):
+        self.batch_s, self.batch_sizes, self.deltas = [], [], []
+        self.torn = self.rejected = self.committed = 0
+
+    @property
+    def served(self) -> int:
+        return sum(self.batch_sizes)
+
+
+def closed_loop(np, SG, srv, qs, rng, iters, per_batch, deltas, *,
+                kinds=("component_of",), until_done=False):
+    """``benchmarks/bench_load.py::_closed_loop`` on the port: each
+    iteration submits a batch of seeded queries, answers it through one
+    pinned reader, probes every served program over the whole graph for
+    a torn read (the probe must equal SOME committed epoch bitwise), then
+    begins a 1-edge delta or advances the one in flight by 2 shadow ticks
+    and commits it when done.  ``kinds`` cycle through the batch (one kind
+    draws the JAX bench's numbers exactly); ``until_done`` stops after the
+    last commit and one more batch instead of running ``iters``."""
+    from repro_torch.serve.engine import QueueFullError
+    n = srv.graph.num_real_vertices
+    ids = np.arange(n)
+    names = sorted({SG.KIND_PROGRAM[k] for k in kinds})
+
+    def snapshot():
+        with srv.reader() as view:
+            return [srv.lookup(name, ids, view=view).copy()
+                    for name in names]
+
+    committed = [snapshot()]
+    out, txn, rid, rec = Loop(), None, 0, None
+
+    def commit():
+        t0 = time.perf_counter()
+        stats = txn.commit()
+        rec.update(commit_and_publish_s=time.perf_counter() - t0,
+                   **{f"{k}_{field}": getattr(v, field)
+                      for k, v in stats.items()
+                      for field in ("reactivated", "ticks")})
+        out.deltas.append(rec)
+        committed.append(snapshot())
+        out.committed += 1
+
+    def batch():
+        nonlocal rid
+        served_before = qs.served
+        for _ in range(per_batch):
+            try:
+                qs.submit(SG.GraphQuery(rid, kinds[rid % len(kinds)],
+                                        int(rng.integers(n))))
+            except QueueFullError:
+                out.rejected += 1
+            rid += 1
+        t0 = time.perf_counter()
+        qs.step()
+        out.batch_s.append(time.perf_counter() - t0)
+        out.batch_sizes.append(qs.served - served_before)
+        probe = snapshot()
+        if not any(all(np.array_equal(a, b) for a, b in zip(probe, snap))
+                   for snap in committed):
+            out.torn += 1
+
+    it = 0
+    while (it < iters if not until_done
+           else out.committed < deltas or txn is not None):
+        batch()
+        if txn is None and out.committed < deltas:
+            u, v = int(rng.integers(n)), int(rng.integers(n))
+            t0 = time.perf_counter()
+            txn = srv.begin_delta(insertions=[(u, v)])
+            rec = {"edge": [u, v], "apply_edge_delta_s": txn.patch_s,
+                   "begin_s": time.perf_counter() - t0}
+        elif txn is not None:
+            txn.step(2)
+            if txn.done:
+                commit()
+                txn = None
+        it += 1
+    if txn is not None:  # drain: finish the transaction and the queue
+        txn.run()
+        commit()
+    if until_done:  # one batch on the last epoch: the lag falls to 0
+        batch()
+    while len(qs.queue):
+        served_before = qs.served
+        t0 = time.perf_counter()
+        qs.step()
+        out.batch_s.append(time.perf_counter() - t0)
+        out.batch_sizes.append(qs.served - served_before)
+    return out
+
+
+def elastic_phase(np, torch, E, G, CK, EL, K, cfg, graph, labels, dev):
+    """``asymp_cc_large`` ticked on 8 shards, checkpointed to disk and
+    restored, re-split onto 4 shards (a graph assembled from the 8-shard
+    edge list) and converged there: the labels of phase 4."""
+    n = graph.num_real_vertices
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = E.EngineSession(cfg, graph=graph, device=dev)
+    for _ in range(ELASTIC_TICKS):
+        sess.step()
+    active_before = int(sess.state.active.sum())
+    torch.cuda.synchronize()
+    before_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CK.CheckpointManager(d, keep=1)
+        mgr.save(ELASTIC_TICKS, sess.state, metadata={"shards": 8})
+        tree, meta = mgr.restore(device=dev)
+    state = E.EngineState(**tree)
+    ckpt_s = time.perf_counter() - t0
+    check(meta["shards"] == 8 and all(
+        torch.equal(getattr(state, f), getattr(sess.state, f))
+        for f in ("values", "active", "cursor", "tick")),
+        "elastic: the restored checkpoint differs from the saved state")
+    del sess
+    t0 = time.perf_counter()
+    edges = G.edge_list(graph)
+    g4 = G._assemble_csr(n, ELASTIC_SHARDS, edges[:, 0], edges[:, 1], None)
+    del edges
+    assemble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s4 = EL.repartition_state(state, graph, g4)
+    torch.cuda.synchronize()
+    repartition_s = time.perf_counter() - t0
+    reactivated = int(s4.active.sum())
+    cut = graph.boundary.copy()
+    cut[np.arange(graph.num_shards), np.arange(graph.num_shards)] = False
+    n_cut = int(cut.any(axis=1).sum())
+    del cut
+    t0 = time.perf_counter()
+    sess4 = E.EngineSession(dataclasses.replace(cfg, num_shards=ELASTIC_SHARDS),
+                            graph=g4, device=dev)
+    sess4.replace_state(s4)
+    tot = sess4.tick_until_quiescent()
+    torch.cuda.synchronize()
+    after_s = time.perf_counter() - t0
+    same = torch.equal(sess4.state.values.reshape(-1)[:n], labels)
+    launches = dict(K.spmv_partials.launches_by_form)
+    say("elastic", config=cfg.name, shards=f"8 -> {ELASTIC_SHARDS}",
+        ticks_before=ELASTIC_TICKS, active_before=active_before,
+        cut_vertices=n_cut, reactivated_after_resize=reactivated,
+        ticks_after_resize=tot["ticks"], converged=tot["converged"],
+        labels_equal_main_path=same, seconds_before=before_s,
+        checkpoint_save_restore_s=ckpt_s, assemble_csr_s=assemble_s,
+        repartition_s=repartition_s, seconds_after=after_s,
+        es_4_shards=g4.es, max_memory_allocated=(
+            torch.cuda.max_memory_allocated()), kernel_launches=launches)
+    check(tot["converged"] and same,
+          "elastic: labels after the 8 -> 4 resize differ from phase 4's")
+    check(reactivated <= n_cut + active_before,
+          f"elastic: {reactivated} active after the resize > {n_cut} cut "
+          f"+ {active_before} active before")
+    return launches
+
+
+def serve_main_phase(np, torch, E, G, K, R, SG, ops, cfg_large, graph, dev):
+    """What ``graph_serve --config asymp_cc_large --programs cc,sssp
+    --store <tmp> --queries 256 --deltas 4`` runs, through the classes,
+    with the deltas streamed as ``bench_load``'s closed loop does; then
+    the served fixpoints against the kernel-backed BSP labels and
+    ``min_plus`` pull on the patched graph."""
+    cfg = dataclasses.replace(cfg_large, weighted=True)  # SSSP's weights
+    n = graph.num_real_vertices
+    t0 = time.perf_counter()
+    edges = G.edge_list(graph)  # the builder's draw, edge by edge
+    w = np.random.default_rng(cfg.seed + 7).uniform(
+        0.1, 1.0, size=len(edges)).astype(np.float32)
+    gw = G._assemble_csr(n, graph.num_shards, edges[:, 0], edges[:, 1], w)
+    del edges, w
+    weighted_graph_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as store:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv = SG.GraphServer(cfg, programs=("cc", "sssp"), store_dir=store,
+                             graph=gw, device=dev)
+        totals = srv.converge()
+        torch.cuda.synchronize()
+        converge_s = time.perf_counter() - t0
+        check(all(t["converged"] for t in totals.values()),
+              f"serve_main: not converged {totals.keys()}")
+        t_serve = time.perf_counter()
+        rng = np.random.default_rng(0)
+        qs = SG.QueryServer(srv, num_slots=SERVE_SLOTS)
+        kinds = ("component_of", "distance")
+        asked = []
+        for rid in range(SERVE_QUERIES):
+            asked.append(int(rng.integers(n)))
+            qs.submit(SG.GraphQuery(rid, kinds[rid % 2], asked[-1]))
+        first = []
+        while len(qs.queue):
+            t0 = time.perf_counter()
+            qs.step()
+            first.append(time.perf_counter() - t0)
+        want = {k: srv.sessions[p].state.values.reshape(-1)[:n].cpu().numpy()
+                for k, p in (("component_of", "cc"), ("distance", "sssp"))}
+        check(all(qs.done[rid] == want[kinds[rid % 2]][v]
+                  for rid, v in enumerate(asked)),
+              "serve_main: an answer differs from the converged fixpoint")
+        loop = closed_loop(np, SG, srv, qs, rng, 0, SERVE_SLOTS,
+                           SERVE_DELTAS, kinds=kinds, until_done=True)
+        stats = qs.stats()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+        peak = torch.cuda.max_memory_allocated()
+        # the served fixpoints against the kernels on the patched graph
+        t0 = time.perf_counter()
+        pg = ops.build_pulled_graph(srv.graph).to(dev)
+        pulled_s = time.perf_counter() - t0
+        bsp_labels, bsp = ops.bsp_connected_components(srv.graph, device=dev,
+                                                       pulled=pg)
+        sssp = srv.sessions["sssp"]
+        dist, inputs = min_plus_fixpoint(torch, ops, sssp.prog, pg, n, dev)
+        rounds = len(inputs)
+        torch.cuda.synchronize()
+        launches = dict(K.spmv_partials.launches_by_form)
+        cc_ok = torch.equal(srv.sessions["cc"].state.values.reshape(-1)[:n],
+                            bsp_labels)
+        sssp_ok = torch.equal(sssp.state.values.reshape(-1)[:n], dist)
+        # each kernel at this path's shapes against its plain version: the
+        # BSP round at the fixpoint labels, every round of the pull
+        errs = [hold_against_plain(torch, K, R, pg, bsp_labels, "min",
+                                   "serve_main BSP")] + [
+            hold_against_plain(torch, K, R, pg, vin, "min_plus",
+                               "a serve_main pull round") for vin in inputs]
+        epoch = srv.epoch
+        del srv, gw, pg
+    first_ms = [s * 1e3 for s in first]
+    loop_ms = [s * 1e3 for s in loop.batch_s]
+    say("serve_main", config=cfg.name, programs=["cc", "sssp"],
+        weighted_graph_s=weighted_graph_s, converge_s=converge_s,
+        converge_ticks={k: t["ticks"] for k, t in totals.items()},
+        queries=SERVE_QUERIES, slots=SERVE_SLOTS, query_batches=len(first),
+        batch_ms_p50=pct(first_ms, 50), batch_ms_p99=pct(first_ms, 99),
+        queries_per_s=SERVE_QUERIES / sum(first),
+        deltas=loop.deltas, loop_batches=len(loop.batch_s),
+        loop_served=loop.served, loop_batch_ms_p50=pct(loop_ms, 50),
+        loop_batch_ms_p99=pct(loop_ms, 99),
+        loop_queries_per_s=loop.served / sum(loop.batch_s),
+        torn=loop.torn, rejected=stats["rejected"],
+        freshness_lag_max=stats["freshness_lag_max"],
+        freshness_lag_last=stats["freshness_lag_last"], epoch=epoch,
+        serve_s=serve_s, build_pulled_graph_s=pulled_s,
+        bsp_rounds=bsp["rounds"], min_plus_rounds=rounds,
+        cc_equals_bsp=cc_ok, sssp_equals_min_plus=sssp_ok,
+        kernel_max_abs_err=max(errs), max_memory_allocated=peak,
+        kernel_launches=launches)
+    check(loop.torn == 0 and stats["rejected"] == 0
+          and stats["freshness_lag_max"] <= 1
+          and loop.committed == SERVE_DELTAS,
+          f"serve_main: torn {loop.torn}, rejected {stats['rejected']}, "
+          f"lag {stats['freshness_lag_max']}, {loop.committed} deltas")
+    check(cc_ok, "serve_main: CC labels differ from BSP on the patched graph")
+    check(sssp_ok, "serve_main: SSSP distances differ from the min_plus "
+                   "fixpoint on the patched graph")
+    check(launches.get("min/int32", 0) == bsp["rounds"]
+          and launches.get("min_plus/float32", 0) == rounds,
+          f"serve_main launches {launches} != rounds {bsp['rounds']}, "
+          f"{rounds}")
+    return launches
+
+
+def serve_cfg(GraphConfig, log2n, **kw):
+    """``bench_serve``/``bench_load``'s ``_serve_cfg`` / ``_load_cfg``."""
+    base = dict(name=f"rmat{log2n}", algorithm="cc",
+                num_vertices=1 << log2n, avg_degree=16, generator="rmat",
+                num_shards=8, priority="log", enforce_fraction=0.1)
+    base.update(kw)
+    return GraphConfig(**base)
+
+
+def serve_smoke_phase(np, torch, E, SG, GraphConfig, dev) -> None:
+    """``bench_serve --smoke`` and ``bench_load --smoke`` on the card, held
+    to the counts of ``benchmarks/baselines/BENCH_{serve,load}.json``."""
+    out = {}
+    # bench_serve: a 1-edge delta on RMAT 2^13 CC against a scratch run
+    rng = np.random.default_rng(11)
+    srv = SG.GraphServer(serve_cfg(GraphConfig, 13), programs=("cc",),
+                         device=dev)
+    srv.converge()
+    n = srv.graph.num_real_vertices
+    t0 = time.perf_counter()
+    st = srv.apply_delta(insertions=[(int(rng.integers(n)),
+                                      int(rng.integers(n)))])["cc"]
+    delta_s = time.perf_counter() - t0
+    sess = srv.sessions["cc"]
+    scratch = E.EngineSession(sess.cfg, graph=srv.graph, prog=sess.prog,
+                              device=dev)
+    scratch.tick_until_quiescent()
+    out["delta1_cc"] = dict(
+        reactivated=st.reactivated,
+        reactivated_pct=round(100 * st.reactivated / n, 3),
+        lag_ticks=st.ticks, scratch_ticks=scratch.totals["ticks"],
+        exact=int(torch.equal(sess.state.values, scratch.state.values)),
+        delta_s=delta_s)
+    # bench_serve: pagerank on RMAT 2^11, held to the push_eps ball
+    cfg_pr = serve_cfg(GraphConfig, 11, algorithm="pagerank",
+                       enforce_fraction=1.0, max_ticks=60000)
+    srv_pr = SG.GraphServer(cfg_pr, programs=("pagerank",), device=dev)
+    srv_pr.converge()
+    n = srv_pr.graph.num_real_vertices
+    t0 = time.perf_counter()
+    st = srv_pr.apply_delta(insertions=[(int(rng.integers(n)),
+                                         int(rng.integers(n)))])["pagerank"]
+    delta_s = time.perf_counter() - t0
+    sess = srv_pr.sessions["pagerank"]
+    scratch = E.EngineSession(sess.cfg, graph=srv_pr.graph, prog=sess.prog,
+                              device=dev)
+    scratch.tick_until_quiescent()
+    tol = n * sess.prog.push_eps / (1.0 - 0.85)
+    gap = float((sess.state.values - scratch.state.values).abs().max())
+    out["delta1_pagerank"] = dict(
+        reactivated=st.reactivated, lag_ticks=st.ticks, gap=gap, tol=tol,
+        baseline=SERVE_PR_BASELINE, delta_s=delta_s)
+    # bench_load: the closed loop with 3 deltas, then the PPR cache
+    rng = np.random.default_rng(17)
+    with tempfile.TemporaryDirectory() as d:
+        srv = SG.GraphServer(serve_cfg(GraphConfig, 13), programs=("cc",),
+                             store_dir=d, device=dev)
+        srv.converge()
+        qs = SG.QueryServer(srv, num_slots=32, max_queue=256)
+        t0 = time.perf_counter()
+        loop = closed_loop(np, SG, srv, qs, rng, 24, 16, LOAD_BASELINE[
+            "deltas"])
+        wall = time.perf_counter() - t0
+        out["load"] = dict(torn=loop.torn, rejected=loop.rejected,
+                           lag_max=qs.lag_max, lag_final=qs.lag_last,
+                           deltas=loop.committed, served=loop.served,
+                           wall_s=wall, queries_per_s=loop.served / wall)
+        del srv, qs
+    cfg_ppr = serve_cfg(GraphConfig, 10, enforce_fraction=1.0,
+                        max_ticks=60000)
+    srv = SG.GraphServer(cfg_ppr, programs=("cc",), ppr_cache=8, device=dev)
+    srv.converge()
+    n = srv.graph.num_real_vertices
+    hot = [int(rng.integers(n)) for _ in range(2)]
+    t0 = time.perf_counter()
+    for v in hot:
+        srv.top_k_near(v, k=8)
+    build_s = time.perf_counter() - t0
+    srv.apply_delta(insertions=[(hot[0], int(rng.integers(n)))])
+    t0 = time.perf_counter()
+    for v in hot:
+        srv.top_k_near(v, k=8)
+    repair_s = time.perf_counter() - t0
+    cs = srv.ppr_cache.stats()
+    out["ppr_cache"] = dict(hits=cs["hits"], misses=cs["misses"],
+                            invalidations=cs["invalidations"],
+                            build_s=build_s, repair_s=repair_s)
+    say("serve_smoke", baselines={"delta1_cc": SERVE_CC_BASELINE,
+                                  "load": LOAD_BASELINE,
+                                  "ppr_cache": PPR_BASELINE}, **out)
+    cc = out["delta1_cc"]
+    check((cc["reactivated_pct"], cc["lag_ticks"], cc["scratch_ticks"],
+           cc["exact"]) == SERVE_CC_BASELINE,
+          f"serve smoke delta1_cc {cc} != the baseline {SERVE_CC_BASELINE}")
+    check(gap <= tol, f"serve smoke pagerank: gap {gap} > tol {tol}")
+    got = {k: out["load"][k] for k in LOAD_BASELINE}
+    check(got == LOAD_BASELINE,
+          f"load smoke {got} != the baseline {LOAD_BASELINE}")
+    got = {k: out["ppr_cache"][k] for k in PPR_BASELINE}
+    check(got == PPR_BASELINE,
+          f"PPR cache {got} != the baseline {PPR_BASELINE}")
+
+
+def serve_rank_phase(np, torch, K, M, SG, ops, cfg_pr, g_pr, dev):
+    """``asymp_pagerank`` served with ``programs=("cc", "pagerank")``, 2
+    one-edge deltas; after each commit the served ranks pass the pagerank
+    verdict against the kernel-backed dense oracle on the patched
+    graph."""
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv = SG.GraphServer(cfg_pr, programs=("cc", "pagerank"), graph=g_pr,
+                         device=dev)
+    totals = srv.converge()
+    torch.cuda.synchronize()
+    converge_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    n = g_pr.num_real_vertices
+    rows = []
+    for _ in range(2):
+        ins = [(int(rng.integers(n)), int(rng.integers(n)))]
+        t0 = time.perf_counter()
+        stats = srv.apply_delta(insertions=ins)
+        torch.cuda.synchronize()
+        delta_s = time.perf_counter() - t0
+        oracle = ops.pagerank(srv.graph, damping=cfg_pr.damping,
+                              iters=ORACLE_ITERS, dangling="absorb",
+                              device=dev)
+        sess = srv.sessions["pagerank"]
+        l1, mass = pagerank_verdict(torch, np, M, sess.state,
+                                    sess.totals_snapshot(), srv.graph,
+                                    oracle, "serve_rank after a delta")
+        rows.append({"edge": ins[0], "delta_s": delta_s, "l1_to_oracle": l1,
+                     "mass_balance": mass,
+                     **{f"{k}_{f}": getattr(v, f) for k, v in stats.items()
+                        for f in ("reactivated", "ticks")}})
+    launches = dict(K.spmv_partials.launches_by_form)
+    say("serve_rank", config=cfg_pr.name, programs=["cc", "pagerank"],
+        converge_ticks={k: t["ticks"] for k, t in totals.items()},
+        converge_s=converge_s, deltas=rows,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        kernel_launches=launches)
+    check(launches.get("plus_times/float32", 0) == 2 * ORACLE_ITERS,
+          f"serve_rank launches {launches} != {2 * ORACLE_ITERS}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -487,9 +961,12 @@ def main() -> int:
         from repro_torch.core.programs import get_program
         from repro_torch.dist import exchange as X
         from repro_torch.dist import latency as L
+        from repro_torch.ft import checkpoint as CK
+        from repro_torch.ft import elastic as EL
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
+        from repro_torch.serve import graph as SG
     except ImportError as e:
         print(f"[chip_smoke] FAIL: the port is not beside this script "
               f"({e})", flush=True)
@@ -876,7 +1353,7 @@ def main() -> int:
           "crowded asymp_cc_large: labels differ from the main path's")
     check(tot_c["pending"] == 0 and in_flight == 0,
           f"crowded asymp_cc_large: {in_flight} messages left in the ring")
-    del sess, labels
+    del sess
     say("crowded_tick_profile", **window_profile(
         torch, E.EngineSession(cfg_crowd, graph=graph, device=dev),
         CROWDED_WARM_TICKS))
@@ -896,17 +1373,43 @@ def main() -> int:
     t_phase = time.perf_counter()
     crowded_faults_phase(torch, E, F, G, get_graph_config, dev)
     phase_s["crowded_faults"] = time.perf_counter() - t_phase
+
+    # ---- 12. elastic resize 8 -> 4 shards at full width ----
+    t_phase = time.perf_counter()
+    elastic_launches = elastic_phase(np, torch, E, G, CK, EL, K, cfg_large,
+                                     graph, labels, dev)
+    del labels
+    phase_s["elastic"] = time.perf_counter() - t_phase
+
+    # ---- 13. the serving plane at full width ----
+    t_phase = time.perf_counter()
+    serve_launches = serve_main_phase(np, torch, E, G, K, R, SG, ops,
+                                      cfg_large, graph, dev)
+    phase_s["serve_main"] = time.perf_counter() - t_phase
+
+    # ---- 14. bench_serve --smoke and bench_load --smoke on the card ----
+    t_phase = time.perf_counter()
+    serve_smoke_phase(np, torch, E, SG, GraphConfig, dev)
+    phase_s["serve_smoke"] = time.perf_counter() - t_phase
+
+    # ---- 15. pagerank served under deltas, held to its verdict ----
+    t_phase = time.perf_counter()
+    rank_launches = serve_rank_phase(np, torch, K, M, SG, ops, cfg_pr, g_pr,
+                                     dev)
+    phase_s["serve_rank"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 12. kernels line, card, last line ----
+    # ---- 16. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 
     # launches on the script's paths: the main path, pagerank, faults, the
-    # crowded main path (none: the engine tick has no kernel) and the
-    # crowded smoke's min_plus pull
+    # crowded main path and the elastic resize (none: the engine tick has
+    # no kernel), the crowded smoke's min_plus pull, and the serving
+    # plane's checks (serve_main: BSP and the min_plus pull on the patched
+    # graph; serve_rank: the pagerank oracle after each delta)
     paths = (launches, pr_launches, fault_launches, crowd_launches,
-             smoke_launches)
+             smoke_launches, elastic_launches, serve_launches, rank_launches)
 
     by_form = {k: sum(path.get(k, 0) for path in paths)
                for k in sorted({k for path in paths for k in path})}
@@ -922,12 +1425,14 @@ def main() -> int:
                 "launches_by_form": {k: by_form[k] for k in keys}}
 
     idem = entry("spmv_partials[min,max,min_plus,max_min,or] "
-                 "(BSP path: min/int32; crowded smoke: min_plus/float32)",
+                 "(BSP path and serve_main: min/int32; crowded smoke and "
+                 "serve_main: min_plus/float32)",
                  forms[0], [k for k in by_form
                             if not k.startswith("plus_times")],
                  worst["idempotent"])
     idem["forms"] = [f for f in forms[1:] if f["semiring"] != "plus_times"]
-    pt = entry("spmv_partials[plus_times] (pagerank oracle)", forms[1],
+    pt = entry("spmv_partials[plus_times] (pagerank oracle; serve_rank)",
+               forms[1],
                [k for k in by_form if k == "plus_times/float32"],
                worst["plus_times"])
     pt["forms"] = [f for f in forms[2:] if f["semiring"] == "plus_times"

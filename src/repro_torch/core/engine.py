@@ -32,12 +32,11 @@ package on the CPU (``tests/test_torch_engine.py``,
 ``tests/test_torch_pagerank.py``, ``tests/test_torch_crowded.py``,
 ``tests/test_torch_async.py``).  Not ported yet: the multi-rank ticks
 ``make_dist_tick``, ``make_crowded_dist_tick``, ``make_async_dist_tick``
-and ``lower_tick_for_mesh`` (ROADMAP queue 1, item 12) and the serving
-hooks of ``EngineSession`` (``fork``, ``replace_state``, ``rebind_graph``,
-``rebase_recovery``; item 11).
+and ``lower_tick_for_mesh`` (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import NamedTuple, Optional
@@ -755,9 +754,13 @@ class EngineSession:
     ``FaultManager``, cuts the ring checkpoint, then lets the manager fail
     and recover shards, as the JAX package orders it.  Each tick's
     counters come to the host in one transfer.  ``device=None`` means the
-    CUDA card (raises if there is none).  The serving hooks of the JAX
-    package's session (``fork``, ``replace_state``, ``rebind_graph``,
-    ``rebase_recovery``) are not ported (ROADMAP queue 1, item 11).
+    CUDA card (raises if there is none).  ``fork``, ``replace_state``,
+    ``rebind_graph`` and ``rebase_recovery`` are the streaming-delta hooks
+    of the serving plane (``serve/graph.py``).
+
+    No tick, recovery or seeding writes into a state tensor in place (the
+    scatters copy first, a recovery clones, the ring is functional), so a
+    fork may share every tensor with its primary.
     """
 
     def __init__(self, cfg: GraphConfig, *,
@@ -1125,6 +1128,80 @@ class EngineSession:
             out["clock"] = list(self._clock)
         out["log"] = self.log
         return out
+
+    # -- streaming-delta hooks (serve/graph.py) ------------------------
+    def fork(self) -> "EngineSession":
+        """A shadow copy of this session: same graph, program, params,
+        schedule and compiled tick, with the CURRENT run state (core
+        state, ring, demotion and clock planes, their host mirrors, host
+        step, totals and log) duplicated, so that the fork and the
+        original tick independently from this instant.
+
+        The double-buffered serving path's write handle: the primary keeps
+        answering at the committed fixpoint while the fork absorbs a delta
+        (``serve/graph.py::DeltaTransaction``).  Tensors are shared, not
+        copied: no path writes into one in place (class docstring).  The
+        fork gets a FRESH fault manager (no log, no snapshots), which
+        ``rebase_recovery`` seeds, as the delta path requires."""
+        new = copy.copy(self)
+        if self.fault_mgr is not None:
+            new.fault_mgr = new._fault_manager(self.fault_mgr.ep,
+                                               self.fault_mgr.replay_slack)
+        new.totals = dict(self.totals)
+        new.log = list(self.log)
+        if self.schedule == "async":
+            new._clock = list(self._clock)
+            new._shard_busy = list(self._shard_busy)
+        return new
+
+    def replace_state(self, core: EngineState) -> None:
+        """Swap the core engine state (host-side delta seeding) and refresh
+        the activity counters.  The ring, demotion and clock planes are
+        kept: deltas are applied at quiescence, with the rings drained."""
+        if self.schedule == "async":
+            self._astate = self._astate._replace(core=core)
+            ring = self._astate.ring
+            inflight = (ring.ids >= 0) & (ring.due >= 0)[..., None]
+            self._n_active, self._shard_busy = _to_host(
+                core.active.sum(),
+                core.active.sum(dim=1) + inflight.sum(dim=(0, 1, 3)))
+        elif self.crowded:
+            self._cstate = self._cstate._replace(core=core)
+            self._n_active = int(torch.sum(core.active))
+        else:
+            self._state = core
+            self._n_active = int(torch.sum(core.active))
+
+    def rebind_graph(self, graph: ShardedGraph) -> None:
+        """Point the session at a patched graph (streaming delta): the
+        device copy is uploaded again; EngineParams stay as derived for
+        the original graph, so route capacity keeps its head-room across
+        small deltas."""
+        self.graph = graph
+        self.g = to_device_graph(graph, self.device)
+        if self.fault_mgr is not None:
+            self.fault_mgr.graph = graph
+            self.fault_mgr._boundary = None
+
+    def rebase_recovery(self) -> None:
+        """Make the CURRENT state the recovery floor (right after a delta
+        is seeded): snapshots and logged messages of the old graph would
+        resurrect stale values if restored or replayed.  Checkpoint-restore
+        recovery also re-cuts its ring snapshot here."""
+        if self.fault_mgr is None:
+            return
+        if self.schedule == "async":
+            a = self._astate
+            self.fault_mgr.rebase(self._t, a.core, clock=self._clock,
+                                  graph=self.graph)
+            self._ring_ckpt = (a.ring, a.demote, a.core.tick, a.clock,
+                               self._dev_tick, list(self._clock))
+        elif self.crowded:
+            c = self._cstate
+            self.fault_mgr.rebase(self._t, c.core, graph=self.graph)
+            self._ring_ckpt = (c.ring, c.demote, c.core.tick)
+        else:
+            self.fault_mgr.rebase(self._t, self._state, graph=self.graph)
 
 
 def run_to_convergence(cfg: GraphConfig, *,

@@ -33,7 +33,9 @@ the replay window reaches back past the snapshot by ``replay_slack``
 (the largest link delay, plus the stall bound for the async schedule),
 and an async run's snapshots carry each shard's logical ``clock``.
 
-Not ported yet: ``FaultManager.rebase`` (ROADMAP queue 1, item 11).
+A streaming edge delta (``serve/graph.py``) re-anchors recovery at the
+seeded state (``FaultManager.rebase``): what was logged or snapshotted
+before it describes the old graph.
 """
 from __future__ import annotations
 
@@ -203,6 +205,33 @@ class FaultManager:
             for old in list(self.msg_log):
                 if old < t - (self.log_ticks + self.replay_slack):
                     del self.msg_log[old]
+
+    def rebase(self, t: int, state: EngineState, clock=None,
+               graph=None) -> None:
+        """Re-anchor recovery at the CURRENT state (streaming deltas).
+
+        A graph delta invalidates everything recorded before it: a logged
+        buffer carries values derived over edges that may be gone
+        (replaying it would re-poison a targeted reset) and an older
+        snapshot predates the patched CSR.  So the log is cleared, the
+        state becomes every shard's snapshot at host step ``t`` (with
+        ``clock``, a ``[P]`` clock vector, on the async path), and the
+        boundary maps follow ``graph``: a kill inside the slack window then
+        takes the boundary fallback, correct by self-stabilization on the
+        new graph."""
+        if graph is not None:
+            self.graph = graph
+        self._boundary = None  # cached from the graph it was built on
+        self.msg_log.clear()
+        vals, act, cur = (x.clone() for x in (state.values, state.active,
+                                               state.cursor))
+        aux = state.aux.clone() if state.aux is not None else None
+        for p in range(self.graph.num_shards):
+            self.ckpt[p] = (vals[p], act[p], cur[p],
+                            aux[p] if aux is not None else None)
+            self.ckpt_tick[p] = t
+            if clock is not None:
+                self.ckpt_clock[p] = int(clock[p])
 
     def maybe_fail(self, t: int, state: EngineState, plan: FaultPlan,
                    clock=None):

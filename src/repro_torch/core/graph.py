@@ -1,9 +1,9 @@
 """Sharded CSR graphs + generators (RMAT per the paper, ER, grid, chain, star).
 
 Counterpart of ``repro.core.graph``: host-side numpy, byte-identical to it
-for the same config (the parity tests compare every array).  The streaming
-delta patch (``apply_edge_delta``) waits for the serving slice (ROADMAP
-queue 1, item 11).
+for the same config (the parity tests compare every array), and so is
+the streaming delta patch ``apply_edge_delta`` that the serving plane
+(``serve/graph.py``) applies.
 
 Vertices are partitioned into P contiguous ranges ("workers"); each shard
 holds the out-edges of its vertices in CSR form, padded to the max per-shard
@@ -14,7 +14,7 @@ for the fault-recovery fallback path (DESIGN.md C3).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -250,6 +250,148 @@ def edge_list(graph: ShardedGraph, with_weights: bool = False):
         return edges, (np.concatenate(ws).astype(np.float32)
                        if ws else np.ones(len(edges), np.float32))
     return edges
+
+
+# ======================================================================
+# Streaming edge deltas (the serving plane's mutation path)
+# ======================================================================
+class EdgeDelta(NamedTuple):
+    """What :func:`apply_edge_delta` actually changed (directed,
+    post-symmetrization, deduplicated against the existing edge set)."""
+    inserted: np.ndarray  # [ki, 2] directed edges added
+    deleted: np.ndarray  # [kd, 2] directed edges removed
+    endpoints: np.ndarray  # unique vertex ids touched by either
+
+
+def _canonical_pairs(pairs) -> np.ndarray:
+    """Undirected pairs -> both directions, self-loops dropped, unique
+    rows in (src, dst) order."""
+    pairs = np.asarray(list(pairs), np.int64).reshape(-1, 2)
+    if len(pairs):
+        pairs = np.concatenate([pairs, pairs[:, ::-1]], axis=0)
+        pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+        pairs = np.unique(pairs, axis=0)
+    return pairs
+
+
+def _edge_slots(graph: ShardedGraph, pairs: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Where each directed pair (src, dst) sits in its source shard's edge
+    array: ``(present [k] bool, slot [k])``, with ``slot`` the position the
+    pair has, or would be inserted at, in the (src, dst)-sorted row."""
+    present = np.zeros(len(pairs), bool)
+    slot = np.zeros(len(pairs), np.int64)
+    for i, (u, v) in enumerate(pairs):
+        p, l = int(u) // graph.vs, int(u) % graph.vs
+        lo, hi = int(graph.row_ptr[p, l]), int(graph.row_ptr[p, l + 1])
+        at = lo + int(np.searchsorted(graph.col_idx[p, lo:hi], v))
+        present[i] = at < hi and int(graph.col_idx[p, at]) == int(v)
+        slot[i] = at
+    return present, slot
+
+
+def apply_edge_delta(graph: ShardedGraph, insertions=(), deletions=(),
+                     *, insert_weights: Optional[np.ndarray] = None,
+                     seed: int = 0) -> tuple[ShardedGraph, EdgeDelta]:
+    """Patch the sharded CSR with a streaming delta; byte-identical to the
+    JAX package's patch (and so to a rebuild from the patched edge list).
+
+    ``insertions`` / ``deletions`` are undirected vertex pairs, both
+    symmetrized with self-loops dropped.  Deleting an absent edge or
+    inserting a present one is skipped (``EdgeDelta`` reports what changed);
+    an edge in both lists ends up present.  A weighted graph keeps every
+    surviving edge's weight, and an inserted directed edge draws a fresh
+    weight, ``default_rng(seed).uniform(0.1, 1.0)`` in (src, dst) order,
+    unless ``insert_weights`` gives one per canonical inserted edge.  The
+    padded width ``es`` is recomputed.
+
+    The JAX package lists, sorts and re-assembles every edge.  Here each
+    delta edge is looked up in its sorted CSR row, only the shards the
+    delta touches are spliced, and the rest are copied as they are: the
+    result is the same arrays, without a sort of the whole edge list."""
+    n, P, vs = graph.num_real_vertices, graph.num_shards, graph.vs
+    ins = _canonical_pairs(insertions)
+    dele = _canonical_pairs(deletions)
+    if (len(ins) and int(ins.max()) >= n) or \
+            (len(dele) and int(dele.max()) >= n):
+        raise ValueError("delta touches vertex ids outside the graph")
+
+    stride = np.int64(graph.num_vertices)
+    key = lambda e: e[:, 0] * stride + e[:, 1]  # noqa: E731
+    present, del_slot = _edge_slots(graph, dele)
+    deleted, del_slot = dele[present], del_slot[present]
+    present, _ = _edge_slots(graph, ins)
+    fresh = ~present | np.isin(key(ins), key(deleted))
+    ins_new = ins[fresh]
+    iw = None
+    if graph.weights is not None:
+        if insert_weights is not None:
+            iw = np.asarray(insert_weights, np.float32)[fresh]
+        else:
+            rng = np.random.default_rng(seed)
+            iw = rng.uniform(0.1, 1.0, size=len(ins_new)).astype(np.float32)
+
+    # splice the touched shards: drop the deleted slots, then insert the
+    # fresh edges at their places in the (src, dst) order
+    old_counts = np.asarray(graph.edge_counts, np.int64)
+    rows: dict[int, tuple] = {}
+    for p in np.unique(np.concatenate([deleted[:, 0], ins_new[:, 0]]) // vs):
+        p = int(p)
+        cnt = int(old_counts[p])
+        src = np.repeat(np.arange(vs, dtype=np.int64),
+                        graph.row_ptr[p, 1:] - graph.row_ptr[p, :-1])
+        dst = graph.col_idx[p, :cnt]
+        w = graph.weights[p, :cnt] if graph.weights is not None else None
+        gone = del_slot[deleted[:, 0] // vs == p]
+        src, dst = np.delete(src, gone), np.delete(dst, gone)
+        w = np.delete(w, gone) if w is not None else None
+        mine = ins_new[:, 0] // vs == p
+        add = ins_new[mine]
+        at = np.searchsorted(src * stride + dst,
+                             (add[:, 0] - p * vs) * stride + add[:, 1])
+        src = np.insert(src, at, add[:, 0] - p * vs)
+        dst = np.insert(dst, at, add[:, 1])
+        if w is not None:
+            w = np.insert(w, at, iw[mine])
+        rows[p] = (src, dst, w)
+
+    counts = old_counts.copy()
+    for p, (src, _, _) in rows.items():
+        counts[p] = len(src)
+    es = max(int(counts.max()), 1)
+    row_ptr = np.array(graph.row_ptr, np.int64)
+    col_idx = np.full((P, es), -1, dtype=np.int64)
+    weights = (np.zeros((P, es), dtype=np.float32)
+               if graph.weights is not None else None)
+    boundary = np.array(graph.boundary, bool)
+    for p in range(P):
+        if p not in rows:
+            cnt = int(counts[p])
+            col_idx[p, :cnt] = graph.col_idx[p, :cnt]
+            if weights is not None:
+                weights[p, :cnt] = graph.weights[p, :cnt]
+            continue
+        src, dst, w = rows[p]
+        col_idx[p, :len(dst)] = dst
+        if weights is not None:
+            weights[p, :len(w)] = w
+        row_ptr[p] = np.searchsorted(src, np.arange(vs + 1))
+        # the boundary bits of every source row the delta touched
+        srcs = np.unique(np.concatenate([deleted[:, 0], ins_new[:, 0]]))
+        srcs = srcs[srcs // vs == p] - p * vs
+        boundary[p][:, srcs] = False
+        hit = np.isin(src, srcs)
+        boundary[p, dst[hit] // vs, src[hit]] = True
+
+    new_graph = ShardedGraph(
+        num_vertices=graph.num_vertices, num_real_vertices=n,
+        num_edges=int(counts.sum()), num_shards=P, vs=vs, row_ptr=row_ptr,
+        col_idx=col_idx, weights=weights, edge_counts=counts,
+        boundary=boundary)
+    touched = (np.unique(np.concatenate([ins_new.ravel(), deleted.ravel()]))
+               if len(ins_new) + len(deleted)
+               else np.zeros(0, np.int64))
+    return new_graph, EdgeDelta(ins_new, deleted, touched)
 
 
 # ======================================================================

@@ -3,8 +3,10 @@ on random and on destination-sorted streams, and the tensor-core
 ``plus_times`` on random, sorted and crafted dst layouts) against their
 plain version, the main
 path against its CPU run, pagerank against its verdict, fault recovery
-against its CPU run, the crowded and async ticks against their CPU runs
-and the int16/int8 wire codec against its CPU calls.
+against its CPU run, the crowded and async ticks against their CPU runs,
+the int16/int8 wire codec against its CPU calls, a forked session that
+must leave its primary's tensors untouched, and a small serving plane
+(CC + SSSP, one edge delta) against its CPU run.
 
 Every test carries the ``gpu`` marker and skips on a host without a CUDA
 card (decided in the ``cuda`` fixture, not at import).  On a machine with
@@ -26,6 +28,7 @@ from repro_torch.dist import compression as C  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import semiring_spmv as K  # noqa: E402
+from repro_torch.serve import graph as S  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -375,3 +378,99 @@ def test_wire_codec_on_card_matches_cpu(cuda, bits):
     assert torch.equal(C.widen_int(n_gpu, bits, 2 ** 31 - 1,
                                    torch.int32).cpu(),
                        C.widen_int(n_cpu, bits, 2 ** 31 - 1, torch.int32))
+
+
+def _session_tensors(sess) -> dict:
+    """Every tensor a session holds: core, ring, demotion and clock
+    planes, the ring checkpoint, the fault manager's snapshots and log."""
+    out = {}
+
+    def add(path, obj):
+        if torch.is_tensor(obj):
+            out[path] = obj
+        elif isinstance(obj, (tuple, list)):
+            for i, x in enumerate(obj):
+                add(f"{path}.{i}", x)
+
+    for name in ("_state", "_cstate", "_astate", "_ring_ckpt", "g"):
+        add(name, getattr(sess, name, None))
+    for p, snap in sorted(sess.fault_mgr.ckpt.items()):
+        add(f"ckpt{p}", snap)
+    for t, bufs in sorted(sess.fault_mgr.msg_log.items()):
+        add(f"log{t}", bufs)
+    return out
+
+
+@pytest.mark.parametrize("algorithm,schedule,slow", [
+    ("cc", "sync", 0.0), ("cc", "async", 0.5), ("pagerank", "sync", 0.5)])
+def test_fork_does_not_alias_on_card(cuda, algorithm, schedule, slow):
+    """A fork ticked 30 steps under kills (replay for CC, the global
+    restore with its ring for pagerank) leaves the primary's tensors
+    bitwise as they were; the primary then converges as an un-forked
+    twin does."""
+    cfg = GraphConfig(name="t", algorithm=algorithm, num_vertices=512,
+                      avg_degree=5, generator="rmat", num_shards=4,
+                      priority="log", enforce_fraction=1.0, schedule=schedule)
+    g = G.build_sharded_graph(cfg)
+
+    def session():
+        plan = F.FaultPlan(1.0, start_tick=3, every=3, slow_fraction=slow,
+                           slow_delay=2, slow_intensity=2)
+        return E.EngineSession(cfg, graph=g, fault_plan=plan, device=cuda)
+
+    prim, twin = session(), session()
+    for s in (prim, twin):
+        for _ in range(5):
+            s.step()
+    before = {k: v.clone() for k, v in _session_tensors(prim).items()}
+    fork = prim.fork()
+    for _ in range(30):
+        fork.step()
+    torch.cuda.synchronize()
+    assert fork.totals["failures"] >= 3 and prim.totals["failures"] == 1
+    after = _session_tensors(prim)
+    assert sorted(after) == sorted(before)
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
+    tp, tt = prim.tick_until_quiescent(), twin.tick_until_quiescent()
+    assert tp["converged"] and tt["converged"]
+    if algorithm == "cc":  # min scatters are exact: the same bits
+        assert tp == tt
+        assert torch.equal(prim.state.values, twin.state.values)
+
+
+def test_serving_plane_matches_cpu(cuda, tmp_path):
+    """CC + SSSP served on the card, one mixed edge delta streamed through
+    a transaction with a query batch between steps: states, delta stats,
+    answers and the published epoch equal the CPU port's."""
+    cfg = GraphConfig(name="t-serve", algorithm="cc", num_vertices=1024,
+                      avg_degree=8, generator="rmat", num_shards=4,
+                      priority="log", enforce_fraction=0.5, weighted=True)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        srv = S.GraphServer(cfg, programs=("cc", "sssp"),
+                            store_dir=str(tmp_path / dev.type), device=dev)
+        totals = srv.converge()
+        qs = S.QueryServer(srv, num_slots=8)
+        edges = G.edge_list(srv.graph)
+        txn = srv.begin_delta(insertions=[(3, 1000), (17, 512)],
+                              deletions=[tuple(edges[5]), tuple(edges[99])])
+        for rid, v in enumerate(range(0, 1024, 64)):
+            qs.submit(S.GraphQuery(rid, ("component_of", "distance")[rid % 2],
+                                   v))
+        while not txn.step(2):
+            qs.step()
+        stats = txn.commit()
+        qs.run()
+        runs[dev.type] = (srv, totals, stats, dict(qs.done), qs.stats())
+    (gs, gt, gd, ga, gq), (cs, ct, cd, ca, cq) = runs["cuda"], runs["cpu"]
+    assert gt == ct and gd == cd and ga == ca and gq == cq
+    assert gq["freshness_lag_max"] == 1 and gs.epoch == cs.epoch == 2
+    for name in ("cc", "sssp"):
+        for f in ("values", "active", "cursor", "tick"):
+            assert torch.equal(getattr(gs.sessions[name].state, f).cpu(),
+                               getattr(cs.sessions[name].state, f)), (name, f)
+    ids = np.arange(1024)
+    with gs.reader() as gv, cs.reader() as cv:
+        for name in ("cc", "sssp"):
+            assert np.array_equal(gv.lookup(name, ids), cv.lookup(name, ids))

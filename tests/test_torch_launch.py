@@ -186,8 +186,12 @@ def test_port_runs_without_jax_or_repro(tmp_path):
         "'--schedule', 'async', '--device', 'cpu'])\n"
         "graph_mine.main(['--config', 'asymp_cc_wire', '--reduced', "
         "'--slowdown', '0.5', '--device', 'cpu'])\n"
+        "from repro_torch.launch import graph_serve\n"
+        "graph_serve.main(['--config', 'asymp_cc', '--reduced', "
+        "'--programs', 'cc,sssp', '--device', 'cpu'])\n"
         "import repro_torch.core.faults\n"
         "import repro_torch.dist.compression, repro_torch.dist.latency\n"
+        "import repro_torch.serve.graph, repro_torch.ft.elastic\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -214,6 +218,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert len(files) > 10 and PORT / "core" / "faults.py" in files
     assert PORT / "dist" / "latency.py" in files
     assert PORT / "dist" / "compression.py" in files
+    assert PORT / "serve" / "graph.py" in files
+    assert PORT / "ft" / "elastic.py" in files
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f
