@@ -86,11 +86,34 @@ non-zero:
  15. ``serve_rank``: ``asymp_pagerank`` served with CC, 2 one-edge deltas,
      each commit held to the pagerank verdict against the kernel-backed
      dense oracle on the patched graph;
- 16. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+ 16. ``dist_nccl``: ``asymp_cc_wire`` on one shard as a 1-rank NCCL group
+     (NCCL takes one rank per card), int16 labels and ids crossing the
+     collective as bytes: bitwise the local tick every tick, to quiescence;
+ 17. ``dist_main``, multi-rank execution at full width: ``asymp_cc_large``
+     (RMAT 2^18) as 8 ranks of one gloo group sharing the card (gloo
+     stages the CUDA tensors through the host), each rank mapping its rows
+     of the graph built in phase 4 from ``.npy`` files: every tick's
+     global ``TickStats`` equal phase 4's, 1,246 ticks and 19,678,958
+     messages, the labels phase 4's; ms a tick, the collective's ms, each
+     rank's peak memory.  Eight processes time-slicing one card measure
+     contention and host staging, not scaling;
+ 18. ``dist_crowded`` and ``dist_async``: ``asymp_cc_crowded`` on the 8
+     ranks under the crowded and the async dist ticks, rank 0 holding
+     every tick's gathered state (ring and clock included) and counters
+     bitwise to the local tick's; the ring drained, the labels phase 11's
+     fault-free labels;
+ 19. ``dist_rank``: ``asymp_pagerank`` on the 8 ranks for a window of
+     ticks, the mass balance within 1e-5 every 100 (the verdict too if it
+     converges in the window; not bitwise: the card's scatter-add is
+     atomic);
+ 20. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15)
-and read after it.
+and read after it.  The multi-rank phases launch no kernel (the engine
+tick has none): their labels are held to phase 4's, which equal the
+kernel-backed BSP's.  The ranks are one pool of spawned processes for all
+the gloo phases; a rank that fails ends the run with a non-zero exit.
 
 It imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -149,6 +172,11 @@ SERVE_PR_BASELINE = {"reactivated": 36, "lag_ticks": 391}
 LOAD_BASELINE = {"torn": 0, "rejected": 0, "lag_max": 1, "lag_final": 0,
                  "deltas": 3, "served": 384}
 PPR_BASELINE = {"hits": 2, "misses": 2, "invalidations": 2}
+# the multi-rank phases: 8 gloo ranks sharing the card; the main path's
+# ticks and messages at asymp_cc_large, which dist_main must reproduce
+DIST_RANKS, DIST_TIMEOUT_S, DIST_A2A_REPS = 8, 600, 20
+MAIN_PATH_COUNTS = (1246, 19678958)
+DIST_LOCKSTEP_TICKS, DIST_RANK_TICKS = 20000, 1000
 
 
 class SmokeFailure(Exception):
@@ -453,16 +481,19 @@ def crowded_smoke_phase(np, torch, E, K, L, R, ops, cfg, g, pg,
     return pull_launches
 
 
-def crowded_faults_phase(torch, E, F, G, get_graph_config, dev) -> None:
-    """``asymp_cc_crowded`` under kills plus slowdowns, sync and async."""
+def crowded_faults_phase(torch, E, F, G, get_graph_config, dev):
+    """``asymp_cc_crowded`` under kills plus slowdowns, sync and async.
+    Returns the graph and each schedule's fault-free labels (numpy)."""
     plan = dict(fail_fraction=0.5, start_tick=4, every=6, slow_fraction=0.5,
                 slow_delay=3, slow_intensity=4)
     cfg = get_graph_config("asymp_cc_crowded")
     g = G.build_sharded_graph(cfg)
     n = g.num_real_vertices
+    fault_free = {}
     for schedule in ("sync", "async"):
         c = dataclasses.replace(cfg, schedule=schedule)
         base, bt = E.run_to_convergence(c, graph=g, device=dev)
+        fault_free[schedule] = base.values.reshape(-1)[:n].cpu().numpy()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st, tot = E.run_to_convergence(c, graph=g, device=dev,
@@ -482,6 +513,7 @@ def crowded_faults_phase(torch, E, F, G, get_graph_config, dev) -> None:
         check(tot["failures"] == 4 and tot["replayed"] > 0,
               f"crowded faults ({schedule}): {tot['failures']} failures, "
               f"{tot['replayed']} replayed")
+    return g, fault_free
 
 
 def hold_against_plain(torch, K, R, pg, vin, semiring, where) -> float:
@@ -942,6 +974,377 @@ def serve_rank_phase(np, torch, K, M, SG, ops, cfg_pr, g_pr, dev):
     return launches
 
 
+# ---------------------------------------------------------------------
+# Multi-rank phases.  The jobs run on the ranks of one RankPool of spawned
+# processes (module-level functions: a spawned rank finds them by name);
+# the phases run in the parent and hold the ranks' results to the local
+# tick's.
+# ---------------------------------------------------------------------
+def save_graph(np, graph, d: str) -> str:
+    """The graph's device arrays (int32 ``row_ptr``, ``col_idx`` with -1
+    padding) as ``.npy`` files in ``d``, for the ranks to memory-map their
+    own rows of: the graph is built once, in the parent, and never
+    pickled."""
+    os.makedirs(d, exist_ok=True)
+    np.save(os.path.join(d, "row_ptr.npy"), graph.row_ptr.astype(np.int32))
+    np.save(os.path.join(d, "col_idx.npy"),
+            np.where(graph.col_idx < 0, -1, graph.col_idx).astype(np.int32))
+    return d
+
+
+def load_graph(np, E, MS, d: str, rank, dev):
+    """A rank's rows of a saved graph on ``dev`` (``rank=None``: every
+    row)."""
+    g = E.ShardGraph(*(np.load(os.path.join(d, f), mmap_mode="r")
+                       for f in ("row_ptr.npy", "col_idx.npy")), None)
+    return MS.to_device(g if rank is None else MS.rank_rows(g, rank), dev)
+
+
+def host_state(state) -> dict:
+    """An engine state's fields as numpy arrays (the start state the
+    ranks are handed)."""
+    return {k: None if v is None else v.cpu().numpy()
+            for k, v in state._asdict().items()}
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak(torch, dev):
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else "not measured")
+
+
+def rank_plain_job(ctx, cfg, ep, gdir, start, max_ticks, every, reps):
+    """``make_dist_tick`` from ``start`` until the global frontier is empty
+    or ``max_ticks``: every tick's global counters; every ``every`` ticks
+    (0: only at the end) the state gathered to every rank; the wall time
+    a tick; the collective alone (one ``exchange_dist`` of this tick's
+    send buffers, ``reps`` times) and the rank's peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.core.programs import get_program
+    from repro_torch.dist import exchange as X
+    from repro_torch.launch import mesh as MS
+    dev, rank = ctx.device, ctx.rank
+    prog = get_program(cfg)
+    g = load_graph(np, E, MS, gdir, rank, dev)
+    state = MS.to_device(MS.rank_rows(E.EngineState(**start), rank), dev)
+    tick = E.make_dist_tick(prog, ep, ctx.group, prog.weighted)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    log, snaps = [], []
+
+    def snapshot():
+        whole = MS.gather_rows(state, ctx.group)
+        if rank == 0:
+            snaps.append(host_state(whole))
+
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for t in range(max_ticks):
+        state, st = tick(state, g)
+        log.append(torch.stack(list(st)).tolist())  # one host read a tick
+        if every and (t + 1) % every == 0:
+            snapshot()
+        if log[-1][0] == 0:
+            break
+    _sync(torch, dev)
+    run_s = time.perf_counter() - t0
+    snapshot()
+    # the collective alone, at this tick's shapes and wire format
+    codec = E.wire_codec(prog, ep)
+    sv = torch.full((ep.num_shards, ep.route_capacity), prog.identity,
+                    dtype=prog.tdtype, device=dev)
+    si = torch.full(sv.shape, -1, dtype=torch.int32, device=dev)
+    X.exchange_dist(codec, sv, si, ctx.group)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        X.exchange_dist(codec, sv, si, ctx.group)
+    _sync(torch, dev)
+    a2a_ms = (time.perf_counter() - t0) / reps * 1e3
+    return {"rank": rank, "ticks": len(log), "run_s": run_s,
+            "ms_per_tick": run_s / len(log) * 1e3, "collective_ms": a2a_ms,
+            "max_memory_allocated": _peak(torch, dev),
+            "log": log if rank == 0 else None,
+            "snapshots": snaps if rank == 0 else None}
+
+
+def rank_lockstep_job(ctx, cfg, ep, gdir, start, schedule, max_ticks):
+    """The crowded (``schedule="sync"``) or async dist tick under
+    ``cfg``'s latency model, what ``EngineSession`` would feed it, with
+    rank 0 stepping the local tick on the whole graph beside it: every
+    tick the state is gathered to every rank and rank 0 holds it bitwise
+    to the local state (the ring in the dist layout), the counters too.
+    Returns rank 0's ticks, pending at the end and final labels."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine as E
+    from repro_torch.core.programs import get_program
+    from repro_torch.dist import exchange as X
+    from repro_torch.dist import latency as L
+    from repro_torch.launch import mesh as MS
+    dev, rank, P = ctx.device, ctx.rank, ep.num_shards
+    prog = get_program(cfg)
+    lat = L.from_config(cfg)
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+
+    delays = put(np.minimum(lat.delays, lat.max_delay))
+    throttle = put(lat.throttle)
+    is_async = schedule == "async"
+    if is_async:
+        inter = L.make_interleaving(P, rates=lat.throttle,
+                                    seed=cfg.async_seed,
+                                    jitter=cfg.async_jitter)
+        ring_delay = E.async_ring_delay(lat.max_delay, inter.stall_bound(1))
+        r_all = max(int(np.asarray(lat.throttle).max(initial=1)), 1)
+        window = put(np.minimum(lat.throttle, r_all) * ep.degree_window)
+        if r_all > 1:
+            ep = dc.replace(ep, degree_window=ep.degree_window * r_all,
+                            route_capacity=ep.route_capacity * r_all)
+        dtick = E.make_async_dist_tick(prog, ep, ctx.group, prog.weighted)
+        ltick = E.make_async_tick(prog, ep, prog.weighted)
+    else:
+        ring_delay = int(lat.max_delay)
+        dtick = E.make_crowded_dist_tick(prog, ep, ctx.group, prog.weighted)
+        ltick = E.make_crowded_tick(prog, ep, prog.weighted)
+
+    def fresh(core, senders):
+        """``core`` with an empty ring (``senders``: 0 = a rank's dist
+        layout, P = local), demotion plane and clock."""
+        ring = X.init_delay_ring(ring_delay, senders, P, ep.route_capacity,
+                                 prog.identity, prog.tdtype, dev)
+        demote = torch.zeros(core.values.shape, dtype=torch.bool,
+                             device=dev)
+        clock = torch.zeros(core.values.shape[0], dtype=torch.int32,
+                            device=dev)
+        return (E.AsyncState(core, ring, demote, clock) if is_async
+                else E.CrowdedState(core, ring, demote))
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    core = MS.to_device(E.EngineState(**start), dev)
+    dstate = fresh(MS.rank_rows(core, rank), 0)
+    g = load_graph(np, E, MS, gdir, rank, dev)
+    if rank == 0:
+        lstate, g_all = fresh(core, P), load_graph(np, E, MS, gdir, None, dev)
+    for t in range(max_ticks):
+        if is_async:
+            fire = torch.as_tensor(inter.fire_mask(t, rates=lat.throttle),
+                                   device=dev)
+            dstate, ds = dtick(dstate, g, delays, fire, window)
+            dstats = list(ds.base) + [ds.pending, ds.shard_active,
+                                      ds.shard_pending, ds.clock]
+        else:
+            dstate, ds, pending = dtick(dstate, g, delays, throttle)
+            dstats = list(ds) + [pending]
+        whole = MS.gather_rows(dstate, ctx.group)
+        if rank == 0:
+            if is_async:
+                lstate, ls, _ = ltick(lstate, g_all, delays, fire, window)
+                lstats = list(ls.base) + [ls.pending, ls.shard_active,
+                                          ls.shard_pending, ls.clock]
+            else:
+                lstate, ls, _ = ltick(lstate, g_all, delays, throttle)
+                lstats = list(ls.base) + [ls.pending]
+            # the dist ring is [P senders, L1, ...], the local [L1, P, ...]
+            pairs = [(a, b) for a, b in zip(E._leaves(whole.core),
+                                            E._leaves(lstate.core))]
+            pairs += [(a, b.transpose(0, 1)) for a, b in
+                      zip(whole.ring, lstate.ring)]
+            pairs += [(whole.demote, lstate.demote)]
+            pairs += [(whole.clock, lstate.clock)] if is_async else []
+            pairs += list(zip(dstats, lstats))
+            bad = [k for k, (a, b) in enumerate(pairs)
+                   if a.shape != b.shape or not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"{schedule} dist tick {t}: fields "
+                                     f"{bad} differ from the local tick's")
+        if is_async:
+            done = not bool((ds.shard_active + ds.shard_pending).any())
+        else:
+            done = int(ds.active) == 0 and int(pending) == 0
+        if done:
+            break
+    in_flight = int(X.ring_pending(whole.ring))
+    return {"rank": rank, "ticks": t + 1, "in_flight": in_flight,
+            "clock": whole.clock.tolist() if is_async else None,
+            "labels": whole.core.values.cpu().numpy() if rank == 0
+            else None, "max_memory_allocated": _peak(torch, dev)}
+
+
+def dist_nccl_phase(torch, E, G, MS, get_graph_config, get_program, dev,
+                    d: str) -> dict:
+    """``asymp_cc_wire`` on one shard as a 1-rank NCCL group (NCCL takes
+    one rank per card), int16 labels and ids crossing the collective as
+    bytes, stepped beside the local tick: bitwise every tick, to
+    quiescence."""
+    import torch.distributed as tdist
+    cfg = dataclasses.replace(get_graph_config("asymp_cc_wire"),
+                              num_shards=1)
+    g = G.build_sharded_graph(cfg)
+    prog = get_program(cfg)
+    ep = E.default_params(cfg, g, prog)
+    codec = E.wire_codec(prog, ep)
+    check(codec.compression == "int16" and codec.compress_ids,
+          f"dist_nccl: the wire is {codec.compression}, not int16")
+    group, _ = MS.make_worker_group(0, 1, backend="nccl", device=dev,
+                                    init_method=f"file://{d}/nccl_store",
+                                    timeout_s=DIST_TIMEOUT_S)
+    try:
+        dg = E.to_device_graph(g, dev)
+        ltick = E.make_local_tick(prog, ep, prog.weighted)
+        dtick = E.make_dist_tick(prog, ep, group, prog.weighted)
+        local = mine = E.init_state(prog, g, dev)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        sent = 0
+        for t in range(cfg.max_ticks):
+            local, ls, _ = ltick(local, dg)
+            mine, ms = dtick(mine, dg)
+            same = all(torch.equal(a, b) for a, b in zip(
+                E._leaves(local) + list(ls), E._leaves(mine) + list(ms)))
+            check(same, f"dist_nccl: tick {t} differs from the local tick")
+            sent += int(ms.sent)
+            if int(ms.active) == 0:
+                break
+        _sync(torch, dev)
+        wall_s = time.perf_counter() - t0
+    finally:
+        tdist.destroy_process_group()
+    out = dict(config=cfg.name, shards=1, backend="nccl",
+               wire=codec.compression, compress_ids=codec.compress_ids,
+               ticks=t + 1, messages=sent, bitwise_every_tick=True,
+               lockstep_s=wall_s,
+               wire_bytes_per_tick=codec.wire_bytes_per_tick())
+    say("dist_nccl", **out)
+    return out
+
+
+def dist_main_phase(np, pool, E, get_program, cfg, graph, gdir, main_log,
+                    labels) -> dict:
+    """This slice's path at full width: ``cfg`` on the pool's ranks, one
+    shard each, from ``init_state``: every tick's global counters equal
+    the local run's (``main_log``), the labels too."""
+    prog = get_program(cfg)
+    ep = E.default_params(cfg, graph, prog)
+    start = host_state(E.init_state(prog, graph, "cpu"))
+    t0 = time.perf_counter()
+    res = pool.run(rank_plain_job, cfg, ep, gdir, start, cfg.max_ticks, 0,
+                   DIST_A2A_REPS, timeout_s=DIST_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    log = res[0]["log"]
+    want = [[e["active"], e["sent"], e["accepted"], e["fetched"]]
+            for e in main_log]
+    n = graph.num_real_vertices
+    got = res[0]["snapshots"][-1]["values"].reshape(-1)[:n]
+    out = dict(
+        config=cfg.name, ranks=pool.world_size, backend="gloo",
+        ticks=len(log), messages=sum(r[1] for r in log),
+        main_path_ticks=len(want), main_path_messages=sum(r[1] for r in want),
+        per_tick_stats_equal_main_path=log == want,
+        labels_equal_main_path=bool(np.array_equal(got, labels)),
+        wall_s=wall_s, propagation_s=max(r["run_s"] for r in res),
+        ms_per_tick=max(r["ms_per_tick"] for r in res),
+        collective_ms_per_tick=[r["collective_ms"] for r in res],
+        wire_bytes_per_tick=E.wire_codec(prog, ep).wire_bytes_per_tick(),
+        route_capacity=ep.route_capacity,
+        max_memory_allocated=[r["max_memory_allocated"] for r in res])
+    say("dist_main", **out)
+    check(out["per_tick_stats_equal_main_path"],
+          "dist_main: the global TickStats differ from the local tick's")
+    check(out["labels_equal_main_path"],
+          "dist_main: labels differ from the main path's")
+    check((out["ticks"], out["messages"]) == MAIN_PATH_COUNTS,
+          f"dist_main: {out['ticks']} ticks, {out['messages']} messages != "
+          f"{MAIN_PATH_COUNTS}")
+    return out
+
+
+def dist_crowded_phase(np, pool, E, get_program, cfg, graph, gdir,
+                       fault_free) -> dict:
+    """``cfg`` (crowded) under the crowded and the async dist ticks on the
+    pool's ranks, rank 0 holding every tick bitwise to the local tick;
+    at the end the ring is drained and the labels equal the fault-free
+    run's (``fault_free[schedule]``)."""
+    prog = get_program(cfg)
+    ep = E.default_params(cfg, graph, prog)
+    start = host_state(E.init_state(prog, graph, "cpu"))
+    n = graph.num_real_vertices
+    out = {}
+    for schedule in ("sync", "async"):
+        c = dataclasses.replace(cfg, schedule=schedule)
+        t0 = time.perf_counter()
+        res = pool.run(rank_lockstep_job, c, ep, gdir, start, schedule,
+                       DIST_LOCKSTEP_TICKS, timeout_s=DIST_TIMEOUT_S)
+        r0 = res[0]
+        same = bool(np.array_equal(r0["labels"].reshape(-1)[:n],
+                                   fault_free[schedule]))
+        name = "dist_crowded" if schedule == "sync" else "dist_async"
+        out[name] = dict(config=cfg.name, schedule=schedule,
+                         ranks=pool.world_size, backend="gloo",
+                         ticks=r0["ticks"], bitwise_every_tick=True,
+                         ring_in_flight=r0["in_flight"], clock=r0["clock"],
+                         labels_equal_fault_free=same,
+                         wall_s=time.perf_counter() - t0,
+                         max_memory_allocated=[r["max_memory_allocated"]
+                                               for r in res])
+        say(name, **out[name])
+        check(r0["ticks"] < DIST_LOCKSTEP_TICKS,
+              f"{name}: not quiescent in {DIST_LOCKSTEP_TICKS} ticks")
+        check(r0["in_flight"] == 0 and same,
+              f"{name}: {r0['in_flight']} messages in flight, labels equal "
+              f"the fault-free labels: {same}")
+    return out
+
+
+def dist_rank_phase(np, torch, pool, E, M, get_program, cfg, graph, gdir,
+                    oracle) -> dict:
+    """Pagerank on the pool's ranks for a window of ``DIST_RANK_TICKS``
+    ticks, the state gathered every 100: the mass balance within 1e-5 at
+    each; if the run converges in the window, the pagerank verdict."""
+    prog = get_program(cfg)
+    ep = E.default_params(cfg, graph, prog)
+    start = host_state(E.init_state(prog, graph, "cpu"))
+    t0 = time.perf_counter()
+    res = pool.run(rank_plain_job, cfg, ep, gdir, start, DIST_RANK_TICKS,
+                   100, DIST_A2A_REPS, timeout_s=DIST_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    log = res[0]["log"]
+    states = [E.EngineState(**{k: None if v is None else torch.from_numpy(v)
+                               for k, v in s.items()})
+              for s in res[0]["snapshots"]]
+    masses = [M.mass_balance(s, graph) for s in states]
+    converged = log[-1][0] == 0
+    out = dict(config=cfg.name, ranks=pool.world_size, backend="gloo",
+               ticks=len(log), messages=sum(r[1] for r in log),
+               converged=converged, jax_cpu_ticks=JAX_PAGERANK[0],
+               mass_balance_every_100=masses, wall_s=wall_s,
+               ms_per_tick=max(r["ms_per_tick"] for r in res),
+               collective_ms_per_tick=[r["collective_ms"] for r in res],
+               max_memory_allocated=[r["max_memory_allocated"]
+                                     for r in res])
+    if converged:
+        out["l1_to_oracle"], out["final_mass"] = pagerank_verdict(
+            torch, np, M, states[-1], {"converged": True}, graph,
+            oracle.cpu(), "dist_rank")
+    say("dist_rank", **out)
+    check(len(log) >= min(DIST_RANK_TICKS, 1000) or converged,
+          f"dist_rank: {len(log)} ticks")
+    check(all(abs(m - 1.0) < 1e-5 for m in masses),
+          f"dist_rank: mass balance {masses}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -966,6 +1369,7 @@ def main() -> int:
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
+        from repro_torch.launch import mesh as MS
         from repro_torch.serve import graph as SG
     except ImportError as e:
         print(f"[chip_smoke] FAIL: the port is not beside this script "
@@ -1151,7 +1555,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, totals = E.run_to_convergence(cfg_large, graph=graph, device=dev)
+    state, totals = E.run_to_convergence(cfg_large, graph=graph, device=dev,
+                                         collect_log=True)
     torch.cuda.synchronize()
     prop_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1184,6 +1589,7 @@ def main() -> int:
           and abs(float(ranks.sum()) - 1.0) < 1e-3,
           f"pagerank mass {float(ranks.sum())} is not 1")
     cc_ticks = totals["ticks"]
+    main_log, labels_host = totals["log"], labels.cpu().numpy()
     del state, bsp_labels, ranks
 
     # ---- 4b. where a BSP run's and an engine tick's time goes (profiled
@@ -1371,7 +1777,8 @@ def main() -> int:
 
     # ---- 11. kills and slowdowns on the crowded config, sync and async ----
     t_phase = time.perf_counter()
-    crowded_faults_phase(torch, E, F, G, get_graph_config, dev)
+    g_crowd, crowd_labels = crowded_faults_phase(torch, E, F, G,
+                                                 get_graph_config, dev)
     phase_s["crowded_faults"] = time.perf_counter() - t_phase
 
     # ---- 12. elastic resize 8 -> 4 shards at full width ----
@@ -1397,9 +1804,37 @@ def main() -> int:
     rank_launches = serve_rank_phase(np, torch, K, M, SG, ops, cfg_pr, g_pr,
                                      dev)
     phase_s["serve_rank"] = time.perf_counter() - t_phase
+
+    # ---- 16-19. multi-rank execution: 8 gloo ranks share the card, one
+    # pool for every phase (torch and CUDA start once, while dist_nccl
+    # runs here); each rank maps its rows of the graphs built above ----
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as dist_dir, MS.RankPool(
+            DIST_RANKS, backend="gloo",
+            init_method=f"file://{dist_dir}/store",
+            timeout_s=DIST_TIMEOUT_S) as pool:
+        dist_nccl_phase(torch, E, G, MS, get_graph_config, get_program, dev,
+                        dist_dir)
+        phase_s["dist_nccl"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        gdir = save_graph(np, graph, os.path.join(dist_dir, "large"))
+        dist_main_phase(np, pool, E, get_program, cfg_large, graph, gdir,
+                        main_log, labels_host)
+        phase_s["dist_main"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        gdir = save_graph(np, g_crowd, os.path.join(dist_dir, "crowded"))
+        dist_crowded_phase(np, pool, E, get_program,
+                           get_graph_config("asymp_cc_crowded"), g_crowd,
+                           gdir, crowd_labels)
+        phase_s["dist_crowded_async"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        gdir = save_graph(np, g_pr, os.path.join(dist_dir, "pagerank"))
+        dist_rank_phase(np, torch, pool, E, M, get_program, cfg_pr, g_pr,
+                        gdir, oracle)
+        phase_s["dist_rank"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 16. kernels line, card, last line ----
+    # ---- 20. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 

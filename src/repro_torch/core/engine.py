@@ -30,9 +30,16 @@ shard fires on its own seeded steps and keeps a logical clock).
 The states and counters after every tick are bitwise those of the JAX
 package on the CPU (``tests/test_torch_engine.py``,
 ``tests/test_torch_pagerank.py``, ``tests/test_torch_crowded.py``,
-``tests/test_torch_async.py``).  Not ported yet: the multi-rank ticks
-``make_dist_tick``, ``make_crowded_dist_tick``, ``make_async_dist_tick``
-and ``lower_tick_for_mesh`` (ROADMAP queue 1, item 12).
+``tests/test_torch_async.py``).
+
+The multi-rank ticks (``make_dist_tick``, ``make_crowded_dist_tick``,
+``make_async_dist_tick``) run the same phases on one rank of a
+``torch.distributed`` group (``launch/mesh.py::make_worker_group``), one
+shard per rank, exchanging through ``exchange_dist(_delayed)``; on the CPU
+with gloo ranks they are bitwise the JAX package's dist ticks on a mesh of
+as many devices (``tests/test_torch_dist.py``).  ``lower_tick_for_mesh``
+is their dry run: the derived sizes and one rank's tick traced on fake
+tensors at any number of ranks.
 """
 from __future__ import annotations
 
@@ -526,10 +533,14 @@ def _slow_recv_rows(ep: EngineParams, num_rows: int, delays):
 
 
 def _next_demote(prog, ep: EngineParams, new_plane, old_plane, recv_ids,
-                 delays, demote):
+                 delays, demote, rank: Optional[int] = None):
+    """The next demotion plane; ``rank`` set: one rank of the dist ticks,
+    whose receive rows are its own column of the delay matrix."""
     if not ep.straggler_demote:
         return torch.zeros_like(demote)
     slow_rows = _slow_recv_rows(ep, recv_ids.shape[1], delays)
+    if rank is not None:
+        slow_rows = slow_rows[rank:rank + 1]
     return _demote_row(prog.aggregator, ep, new_plane, old_plane, recv_ids,
                        slow_rows)
 
@@ -673,6 +684,202 @@ def make_async_tick(prog, ep: EngineParams, weighted: bool):
         core = EngineState(values=values, active=active, cursor=cursor,
                            tick=state.tick + 1, aux=aux)
         return AsyncState(core, ring, demote, clock), astats, (sv, si)
+
+    return tick
+
+
+# ======================================================================
+# Multi-rank execution: one shard per rank of a torch.distributed group
+# ======================================================================
+# A rank holds its own rows of every per-shard tensor, with the shard axis
+# kept at length 1 (``[1, vs]`` state, ``[1, vs + 1]`` / ``[1, es]`` graph,
+# ``[1]`` clock), so the batched phases above run unchanged with P = 1; its
+# delay ring drops the sender axis (``[ring_len, Pn, cap]``).  The tick
+# scalar and the per-tick cluster inputs (delays, throttle, fire, window)
+# are replicated: every rank derives them from the same seed.  The counters
+# of a tick cross one all_reduce of a packed int64 vector, so every rank
+# reads the same global stats and stops on the same tick.
+# ``launch/mesh.py`` cuts a global state into a rank's rows and gathers it
+# back.
+def _reduce_packed(group, parts):
+    """One all_reduce (sum) of several int64 pieces; returns them in their
+    shapes."""
+    flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
+    out = ex_mod.all_reduce_sum(flat, group)
+    sizes = [p.numel() for p in parts]
+    return [o.reshape(p.shape) for o, p in
+            zip(torch.split(out, sizes), parts)]
+
+
+def _rank_in(group, ep: EngineParams) -> int:
+    """This process's rank; the group must have one rank per shard."""
+    size = ex_mod.group_size(group)
+    if size != ep.num_shards:
+        raise ValueError(f"a group of {size} ranks cannot run "
+                         f"{ep.num_shards} shards: one rank per shard")
+    return ex_mod.group_rank(group)
+
+
+def _own_slot(x, rank: int, size: int):
+    """``x`` (one value) in slot ``rank`` of a zero ``[size]`` vector: a
+    field every rank fills with its own entry under the packed sum."""
+    slots = torch.arange(size, device=x.device) == rank
+    return torch.where(slots, x.reshape(()).to(torch.int64), 0)
+
+
+def make_dist_tick(prog, ep: EngineParams, group, weighted: bool):
+    """``tick(state, g) -> (state', TickStats)`` on one rank of ``group``
+    (``ep.num_shards`` ranks): its rows of the state and graph, the sends
+    crossing ``exchange_dist``; the global stats after one packed
+    all_reduce.  Bitwise the local tick's rows (the same phases, the same
+    receive order)."""
+    codec = wire_codec(prog, ep)
+    push_mode = not prog.aggregator.idempotent
+    _rank_in(group, ep)
+
+    def tick(state: EngineState, g: ShardGraph):
+        w = g.weights if weighted else None
+        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
+            prog, ep, state.values, state.active, state.cursor, g.row_ptr,
+            g.col_idx, w, aux=state.aux if push_mode else None)
+        rv, ri = ex_mod.exchange_dist(codec, sv[0], si[0], group)
+        values, active, cursor, aux, accepted, _, _ = _receive(
+            prog, ep, push_mode, values, active, cursor,
+            aux if push_mode else state.aux, rv[None], ri[None])
+        stats = TickStats(*_reduce_packed(group, [
+            active.sum(), sent.sum(), accepted.sum(), fetched.sum()]))
+        return (EngineState(values=values, active=active, cursor=cursor,
+                            tick=state.tick + 1, aux=aux), stats)
+
+    return tick
+
+
+def _dist_ring(prog, ep: EngineParams, ring_delay: int, device):
+    """Every rank's empty sender-side ring, ``[P, ring_len, Pn, cap]``."""
+    one = ex_mod.init_delay_ring(ring_delay, 0, ep.num_shards,
+                                 ep.route_capacity, prog.identity,
+                                 prog.tdtype, device)
+    return ex_mod.DelayRing(*(x.expand((ep.num_shards,) + x.shape).clone()
+                              for x in one))
+
+
+def init_crowded_dist_state(prog, ep: EngineParams, graph: ShardedGraph,
+                            max_delay: int,
+                            device: DeviceLike = None) -> CrowdedState:
+    """:func:`init_crowded_state` in the layout of the dist ticks, all
+    ranks at once: the ring ``[P, ring_len, Pn, cap]`` (rank p's ring is
+    row p)."""
+    dev = resolve_device(device)
+    return CrowdedState(
+        init_state(prog, graph, dev), _dist_ring(prog, ep, max_delay, dev),
+        torch.zeros((ep.num_shards, ep.vs), dtype=torch.bool, device=dev))
+
+
+def make_crowded_dist_tick(prog, ep: EngineParams, group, weighted: bool):
+    """``tick(cstate, g, delays, throttle) -> (cstate', TickStats,
+    pending)`` on one rank: :func:`make_crowded_tick` over
+    ``exchange_dist_delayed``, with the same delivery order, so bitwise
+    its rows.  ``delays [P, Pn]`` and ``throttle [P]`` are replicated;
+    ``pending`` is the whole ring's, summed over the ranks."""
+    codec = wire_codec(prog, ep)
+    push_mode = not prog.aggregator.idempotent
+    rank = _rank_in(group, ep)
+
+    def tick(cstate: CrowdedState, g: ShardGraph, delays, throttle):
+        state = cstate.core
+        w = g.weights if weighted else None
+        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
+            prog, ep, state.values, state.active, state.cursor, g.row_ptr,
+            g.col_idx, w, aux=state.aux if push_mode else None,
+            throttle=throttle[rank:rank + 1], demote=cstate.demote)
+        rv, ri, ring, pending = ex_mod.exchange_dist_delayed(
+            codec, cstate.ring, sv[0], si[0], state.tick, delays[rank],
+            group, prog.identity)
+        values, active, cursor, aux, accepted, old_plane, new_plane = \
+            _receive(prog, ep, push_mode, values, active, cursor,
+                     aux if push_mode else state.aux, rv[None], ri[None])
+        demote = _next_demote(prog, ep, new_plane, old_plane, ri[None],
+                              delays, cstate.demote, rank)
+        *base, pending = _reduce_packed(group, [
+            active.sum(), sent.sum(), accepted.sum(), fetched.sum(),
+            pending])
+        core = EngineState(values=values, active=active, cursor=cursor,
+                           tick=state.tick + 1, aux=aux)
+        return CrowdedState(core, ring, demote), TickStats(*base), pending
+
+    return tick
+
+
+def init_async_dist_state(prog, ep: EngineParams, graph: ShardedGraph,
+                          ring_delay: int,
+                          device: DeviceLike = None) -> AsyncState:
+    """:func:`init_async_state` in the layout of the dist ticks, all ranks
+    at once (ring ``[P, ring_len, Pn, cap]``, clock ``[P]``)."""
+    cstate = init_crowded_dist_state(prog, ep, graph, ring_delay, device)
+    return AsyncState(cstate.core, cstate.ring, cstate.demote,
+                      torch.zeros((ep.num_shards,), dtype=_I32,
+                                  device=cstate.demote.device))
+
+
+def make_async_dist_tick(prog, ep: EngineParams, group, weighted: bool):
+    """``tick(astate, g, delays, fire, window=None) -> (astate',
+    AsyncStats)`` on one rank: :func:`make_async_tick` over
+    ``exchange_dist_delayed`` gated on the receivers' ``fire``, bitwise
+    its rows.  ``delays``, ``fire`` and ``window`` are replicated; the
+    rank gates on its own entries.  The stats' ``[P]`` fields (frontier
+    and clock per shard, in-flight messages per receiver) ride the same
+    packed all_reduce as the counters: each rank fills its own slot of
+    the first two and adds its ring's rows to the third."""
+    codec = wire_codec(prog, ep)
+    push_mode = not prog.aggregator.idempotent
+    rank, size = _rank_in(group, ep), ep.num_shards
+
+    def tick(astate: AsyncState, g: ShardGraph, delays, fire, window=None):
+        state = astate.core
+        w = g.weights if weighted else None
+        if window is None:  # the full static window for every shard
+            window = torch.full((ep.num_shards,), ep.degree_window,
+                                dtype=_I32, device=fire.device)
+        f = fire[rank:rank + 1]
+        active1, cursor1, sv, si, sent, fetched, values1, aux1 = \
+            _phase1_create(prog, ep, state.values, state.active,
+                           state.cursor, g.row_ptr, g.col_idx, w,
+                           aux=state.aux if push_mode else None,
+                           demote=astate.demote,
+                           stream_window=window[rank:rank + 1])
+        fire_v, fire_b = f[:, None], f[:, None, None]
+        values = torch.where(fire_v, values1, state.values)
+        active = torch.where(fire_v, active1, state.active)
+        cursor = torch.where(fire_v, cursor1, state.cursor)
+        aux = torch.where(fire_b, aux1, state.aux) if push_mode else state.aux
+        sv = torch.where(fire_b, sv, prog.identity)
+        si = torch.where(fire_b, si, -1)
+        sent = torch.where(f, sent, 0)
+        fetched = torch.where(f, fetched, 0)
+        rv, ri, ring, pending = ex_mod.exchange_dist_delayed(
+            codec, astate.ring, sv[0], si[0], state.tick, delays[rank],
+            group, prog.identity, recv_gate=fire)
+        values, active, cursor, aux, accepted, old_plane, new_plane = \
+            _receive(prog, ep, push_mode, values, active, cursor, aux,
+                     rv[None], ri[None])
+        demote = _next_demote(prog, ep, new_plane, old_plane, ri[None],
+                              delays, astate.demote, rank)
+        if ep.straggler_demote:
+            demote = torch.where(fire_v, demote, astate.demote)
+        clock = astate.clock + f.to(_I32)
+        inflight = (ring.ids >= 0) & (ring.due >= 0)[..., None]
+        n_active = active.sum()
+        (n_active_all, sent, accepted, fetched, pending, shard_active,
+         shard_pending, clocks) = _reduce_packed(group, [
+            n_active, sent.sum(), accepted.sum(), fetched.sum(), pending,
+            _own_slot(n_active, rank, size), inflight.sum(dim=(0, 2)),
+            _own_slot(clock, rank, size)])
+        stats = TickStats(n_active_all, sent, accepted, fetched)
+        astats = AsyncStats(stats, pending, shard_active, shard_pending,
+                            clocks.to(_I32))
+        core = EngineState(values=values, active=active, cursor=cursor,
+                           tick=state.tick + 1, aux=aux)
+        return AsyncState(core, ring, demote, clock), astats
 
     return tick
 
@@ -1220,3 +1427,121 @@ def run_to_convergence(cfg: GraphConfig, *,
     totals = session.tick_until_quiescent(
         cfg.max_ticks if max_ticks is None else max_ticks)
     return session.state, totals
+
+
+# ======================================================================
+# Dry run of the dist tick
+# ======================================================================
+def lower_tick_for_mesh(cfg: GraphConfig, n_workers: int) -> dict:
+    """The dry run of one rank's dist tick at ``n_workers`` ranks: the JAX
+    package's ``info`` (``workers``, ``vs``, ``es``, ``M``, ``D``, ``cap``,
+    ``wire``, ``wire_bytes_per_tick``, ``schedule``; ``ring_slots`` on the
+    crowded and async ticks, ``latency_profile`` on the crowded one), from
+    the same ``derive_params`` and, for async, the same cycle-scaled
+    window and capacity.  There is no compiler to lower to: the tick runs
+    once under ``FakeTensorMode``, on one rank's arguments and a
+    :class:`~repro_torch.dist.exchange.ShapeOnlyGroup` for the
+    collectives, so its shapes are checked at any size without
+    allocating (a tick that changed its state's shapes raises).
+    ``argument_bytes`` adds up that rank's state, graph, ring and
+    replicated inputs (the counterpart of XLA's
+    ``argument_size_in_bytes``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist import latency as lat_mod
+    from repro_torch.dist.sharding import vertex_partition
+    cfg = dataclasses.replace(cfg, num_shards=n_workers)
+    prog = prog_mod.get_program(cfg)
+    vs = vertex_partition(cfg.num_vertices, n_workers).vs
+    es = max(cfg.num_edges * 2 // n_workers, 1)  # symmetrized estimate
+    ep = derive_params(cfg, num_shards=n_workers, vs=vs, es=es,
+                       num_vertices=cfg.num_vertices, prog=prog)
+    codec = wire_codec(prog, ep)
+    info = {"workers": n_workers, "vs": vs, "es": es,
+            "M": ep.max_vertices_per_tick, "D": ep.degree_window,
+            "cap": ep.route_capacity, "wire": codec.compression,
+            "wire_bytes_per_tick": codec.wire_bytes_per_tick(),
+            "schedule": cfg.schedule}
+    group = ex_mod.ShapeOnlyGroup(0, n_workers)
+    vdt, P_ = prog.tdtype, n_workers
+    empty = torch.empty
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            state = EngineState(
+                empty((1, vs), dtype=vdt), empty((1, vs), dtype=torch.bool),
+                empty((1, vs), dtype=_I32), empty((), dtype=_I32),
+                empty((1, prog.aux_channels, vs), dtype=vdt)
+                if prog.aux_channels else None)
+            g = ShardGraph(empty((1, vs + 1), dtype=_I32),
+                           empty((1, es), dtype=_I32),
+                           empty((1, es), dtype=torch.float32)
+                           if prog.weighted else None)
+
+            def ring(ring_delay, cap):
+                L1 = ring_delay + 1
+                return ex_mod.DelayRing(empty((L1, P_, cap), dtype=vdt),
+                                        empty((L1, P_, cap), dtype=_I32),
+                                        empty((L1, P_), dtype=_I32))
+
+            delays = empty((P_, P_), dtype=_I32)
+            if cfg.schedule == "async":
+                lat = (lat_mod.from_config(cfg)
+                       if cfg.latency_profile != "none" else None)
+                inter = lat_mod.make_interleaving(
+                    n_workers, rates=lat.throttle if lat else None,
+                    seed=cfg.async_seed, jitter=cfg.async_jitter)
+                ring_delay = async_ring_delay(lat.max_delay if lat else 0,
+                                              inter.stall_bound())
+                # a rate-k firing carries k steps' window and routing room
+                r_all = int(inter.rates.max(initial=1))
+                if r_all > 1:
+                    ep = dataclasses.replace(
+                        ep, degree_window=ep.degree_window * r_all,
+                        route_capacity=ep.route_capacity * r_all)
+                info["D"], info["cap"] = ep.degree_window, ep.route_capacity
+                info["ring_slots"] = ring_delay + 1
+                args = (AsyncState(state, ring(ring_delay,
+                                               ep.route_capacity),
+                                   empty((1, vs), dtype=torch.bool),
+                                   empty((1,), dtype=_I32)),
+                        g, delays, empty((P_,), dtype=torch.bool),
+                        empty((P_,), dtype=_I32))
+                out, _ = make_async_dist_tick(prog, ep, group,
+                                              prog.weighted)(*args)
+            elif cfg.latency_profile != "none":
+                lat = lat_mod.from_config(cfg)
+                info["ring_slots"] = int(lat.max_delay) + 1
+                info["latency_profile"] = cfg.latency_profile
+                args = (CrowdedState(state, ring(int(lat.max_delay),
+                                                 ep.route_capacity),
+                                     empty((1, vs), dtype=torch.bool)),
+                        g, delays, empty((P_,), dtype=_I32))
+                out, _, _ = make_crowded_dist_tick(prog, ep, group,
+                                                   prog.weighted)(*args)
+            else:
+                args = (state, g)
+                out, _ = make_dist_tick(prog, ep, group,
+                                        prog.weighted)(*args)
+            before, after = _leaves(args[0]), _leaves(out)
+            if [(t.shape, t.dtype) for t in before] != \
+                    [(t.shape, t.dtype) for t in after]:
+                raise RuntimeError(
+                    f"the dist tick changed its state's shapes at "
+                    f"{n_workers} ranks")
+            info["argument_bytes"] = sum(t.numel() * t.element_size()
+                                         for t in _leaves(args))
+    finally:
+        # the bucket-edge tables are cached per device: drop any that
+        # were made under the fake mode
+        _log_bucket_edges.cache_clear()
+        prog_mod._pagerank_edges.cache_clear()
+    return info
+
+
+def _leaves(tree) -> list:
+    """The tensors of a (nested) tuple, in order; None skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in _leaves(sub)]

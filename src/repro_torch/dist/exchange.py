@@ -13,9 +13,17 @@ and the whole wire codec: ``none`` (raw int32 values and ids) and
 ``int16``/``int8`` (ints narrowed losslessly below a sentinel, floats
 row-quantized in the aggregator's rounding direction, ids as int16 when
 the shard width fits; ``dist/compression.py``).
-``effective_compression`` is the single wire-safety decision point.  The
-multi-rank transports (``exchange_dist``, ``exchange_dist_delayed``) wait
-for ROADMAP queue 1, item 12.
+``effective_compression`` is the single wire-safety decision point.
+
+The **dist** transports (``exchange_dist``, ``exchange_dist_delayed``) run
+one shard per rank of a ``torch.distributed`` process group: a rank's
+``[Pn, cap]`` sends cross ``all_to_all_single`` (JAX's tiled
+``all_to_all`` over the ``workers`` axis), through the same codec as the
+local transport, so the two deliver the same bits in the same row order.
+Neither gloo nor NCCL carries int16, so a payload of a dtype outside
+``_NATIVE`` travels as its bytes (a ``uint8`` view, viewed back on
+arrival).  A :class:`ShapeOnlyGroup` stands in for a process group where
+only shapes matter (``core.engine.lower_tick_for_mesh``).
 
 **Deferred delivery.**  A send buffer produced at tick ``t`` for link
 ``p -> q`` is parked in a :class:`DelayRing` and delivered at tick
@@ -35,6 +43,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.dist import compression as C
 
@@ -159,12 +168,87 @@ def exchange_local(codec: WireCodec, send_vals: torch.Tensor,
 
 
 # ======================================================================
+# The dist transport: one shard per rank of a process group
+# ======================================================================
+# the dtypes both backends carry as they are (gloo refuses int16; NCCL has
+# no int16 and no bool type); any other payload rides as its bytes
+_NATIVE = (torch.uint8, torch.int8, torch.int32, torch.int64, torch.float32,
+           torch.float64)
+
+
+class ShapeOnlyGroup(NamedTuple):
+    """A stand-in for a process group of ``size`` ranks, seen from
+    ``rank``, whose collectives move no data: an all-to-all returns an
+    uninitialised buffer of the right shape, a sum returns its input.
+    Only for tracing shapes (``lower_tick_for_mesh`` under fake tensors),
+    never for a run."""
+    rank: int
+    size: int
+
+
+def group_rank(group) -> int:
+    if isinstance(group, ShapeOnlyGroup):
+        return group.rank
+    return dist.get_rank(group)
+
+
+def group_size(group) -> int:
+    if isinstance(group, ShapeOnlyGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def as_wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a backend can carry it: contiguous, and a dtype outside
+    ``_NATIVE`` viewed as its bytes along the last axis."""
+    x = x.contiguous()
+    return x if x.dtype in _NATIVE else x.view(torch.uint8)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Rows ``[size * k, ...]`` -> rows ``[size * k, ...]``: block ``q`` of
+    the result is the block this rank's peer ``q`` addressed to it (equal
+    splits on dim 0)."""
+    if isinstance(group, ShapeOnlyGroup):
+        return torch.empty_like(x)
+    wire = as_wire(x)
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=group)
+    return out if out.dtype == x.dtype else out.view(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks (``x`` is left as it was)."""
+    if isinstance(group, ShapeOnlyGroup):
+        return x
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def exchange_dist(codec: WireCodec, send_vals: torch.Tensor,
+                  send_ids: torch.Tensor, group
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's ``[Pn, cap]`` send buffers -> its ``[Pn, cap]`` receive
+    buffers over ``group`` (row ``q`` of the result is sender ``q``'s
+    buffer for this rank).  The codec's round trip is
+    :func:`exchange_local`'s, so the two transports deliver the same
+    bits."""
+    enc_v, scales = codec.encode(send_vals)
+    rv = all_to_all(enc_v, group)
+    ri = all_to_all(codec.encode_ids(send_ids), group)
+    rs = all_to_all(scales, group) if scales is not None else None
+    return codec.decode(rv, rs), codec.decode_ids(ri)
+
+
+# ======================================================================
 # Deferred delivery (crowded-cluster emulation — see module docstring)
 # ======================================================================
 class DelayRing(NamedTuple):
-    """In-flight messages of the local delayed transport:
-    ``vals/ids [ring_len, P, Pn, cap]``, ``due [ring_len, P, Pn]``
-    (``due == -1``: an empty or delivered row)."""
+    """In-flight messages of the delayed transports (``due == -1``: an
+    empty or delivered row).  Local: ``vals/ids [ring_len, P, Pn, cap]``,
+    ``due [ring_len, P, Pn]``.  Dist: one rank rings only its own sends,
+    ``vals/ids [ring_len, Pn, cap]``, ``due [ring_len, Pn]``."""
 
     vals: torch.Tensor
     ids: torch.Tensor
@@ -174,8 +258,11 @@ class DelayRing(NamedTuple):
 def init_delay_ring(max_delay: int, num_senders: int, num_shards: int,
                     capacity: int, identity, dtype: torch.dtype,
                     device=None) -> DelayRing:
-    """An empty ring able to carry any per-link delay <= ``max_delay``."""
-    lead = (max_delay + 1, num_senders)
+    """An empty ring able to carry any per-link delay <= ``max_delay``.
+    ``num_senders`` is ``P`` for the local transport and ``0`` for one
+    rank of the dist transport (the sender axis dropped)."""
+    L1 = max_delay + 1
+    lead = (L1, num_senders) if num_senders else (L1,)
     return DelayRing(
         torch.full(lead + (num_shards, capacity), identity, dtype=dtype,
                    device=device),
@@ -235,3 +322,34 @@ def exchange_local_delayed(codec: WireCodec, ring: DelayRing,
     rv, ri = exchange_local(codec, dv.reshape((L1 * P_,) + dv.shape[2:]),
                             di.reshape((L1 * P_,) + di.shape[2:]))
     return rv, ri, ring, pending
+
+
+def exchange_dist_delayed(codec: WireCodec, ring: DelayRing,
+                          send_vals: torch.Tensor, send_ids: torch.Tensor,
+                          tick, delays_row, group, identity, recv_gate=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, DelayRing,
+                                     torch.Tensor]:
+    """Deferred-delivery dist transport with a sender-side ring.
+
+    A rank parks its own ``[Pn, cap]`` sends (``delays_row [Pn]``: its
+    outgoing row of the delay matrix) and ships every ring slot each tick,
+    due rows filled and the rest empty, so shapes stay static.  The result
+    is ``[ring_len * Pn, cap]`` with row ``l * Pn + q`` = sender ``q``'s
+    slot ``l``: the row order of :func:`exchange_local_delayed`, which the
+    demotion reads the sender from (``row % Pn``).  ``recv_gate [Pn]``
+    rides replicated: every sender gates its rows on the whole firing
+    vector.  ``pending`` counts this rank's parked messages only."""
+    dv, di, ring, pending = _ring_push_pop(ring, send_vals, send_ids, tick,
+                                           delays_row, identity, recv_gate)
+    # the collective splits dim 0, so the receiver axis goes first
+    # ([Pn, L1, cap]) and comes back to [L1, Pn, cap] (senders) after it
+    front = lambda x: x.permute(1, 0, 2)  # noqa: E731
+    enc_v, scales = codec.encode(dv)
+    rv = front(all_to_all(front(enc_v), group))
+    ri = front(all_to_all(front(codec.encode_ids(di)), group))
+    rs = (front(all_to_all(front(scales), group)) if scales is not None
+          else None)
+    rv, ri = codec.decode(rv, rs), codec.decode_ids(ri)
+    L1, Pn = rv.shape[0], rv.shape[1]
+    return (rv.reshape((L1 * Pn,) + rv.shape[2:]),
+            ri.reshape((L1 * Pn,) + ri.shape[2:]), ring, pending)

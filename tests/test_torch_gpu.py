@@ -474,3 +474,50 @@ def test_serving_plane_matches_cpu(cuda, tmp_path):
     with gs.reader() as gv, cs.reader() as cv:
         for name in ("cc", "sssp"):
             assert np.array_equal(gv.lookup(name, ids), cv.lookup(name, ids))
+
+
+def test_exchange_dist_nccl_int16_one_rank(cuda, tmp_path):
+    """``exchange_dist`` and ``exchange_dist_delayed`` on a 1-rank NCCL
+    group with int16 codecs (NCCL has no int16: the payload crosses as
+    its bytes) deliver the local transport's bits, rings included."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import exchange as X
+    from repro_torch.launch import mesh as MS
+    group, dev = MS.make_worker_group(
+        0, 1, backend="nccl", init_method=f"file://{tmp_path / 'store'}",
+        timeout_s=120)
+    try:
+        rng = np.random.default_rng(9)
+        for kind, ident in (("int32", 2 ** 31 - 1), ("float32", np.inf)):
+            codec = X.make_wire_codec(
+                num_shards=1, capacity=512, vs=20_000, requested="int16",
+                value_kind=kind, identity=ident, max_int_value=30_000,
+                idempotent=True)
+            assert codec.compression == "int16" and codec.compress_ids
+            dtype = torch.int32 if kind == "int32" else torch.float32
+            ring = X.init_delay_ring(2, 0, 1, 512, ident, dtype, dev)
+            local = X.init_delay_ring(2, 1, 1, 512, ident, dtype, dev)
+            for t in range(5):
+                vals = torch.from_numpy(
+                    rng.integers(0, 30_000, (1, 512)).astype(np.int32)
+                    if kind == "int32" else
+                    rng.uniform(0, 99, (1, 512)).astype(np.float32)).to(dev)
+                ids = torch.from_numpy(rng.integers(
+                    -1, 20_000, (1, 512)).astype(np.int32)).to(dev)
+                rv, ri = X.exchange_dist(codec, vals, ids, group)
+                lv, li = X.exchange_local(codec, vals[None], ids[None])
+                assert torch.equal(rv, lv[0]) and torch.equal(ri, li[0])
+                tick = torch.tensor(t, dtype=torch.int32, device=dev)
+                delays = torch.tensor([t % 3], dtype=torch.int32, device=dev)
+                rv, ri, ring, pend = X.exchange_dist_delayed(
+                    codec, ring, vals, ids, tick, delays, group, ident)
+                lv, li, local, lpend = X.exchange_local_delayed(
+                    codec, local, vals[None], ids[None], tick, delays[None],
+                    ident)
+                assert torch.equal(rv, lv[0]) and torch.equal(ri, li[0])
+                assert int(pend) == int(lpend)
+                for a, b in zip(ring, local):
+                    assert torch.equal(a, b[:, 0])
+    finally:
+        dist.destroy_process_group()
