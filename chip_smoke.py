@@ -106,11 +106,24 @@ non-zero:
      ticks, the mass balance within 1e-5 every 100 (the verdict too if it
      converges in the window; not bitwise: the card's scatter-add is
      atomic);
- 20. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+ 20. ``lm_serve``, the dense LM at full width: qwen3-4b (36 layers,
+     4,022,272,000 parameters, bf16 weights from a seeded generator on the
+     card) served as ``python -m repro_torch.launch.serve --arch qwen3-4b
+     --no-reduced`` runs it (6 requests of 16 tokens, 2 slots, 12 new
+     tokens each): each request equal to the card's ``generate`` of its
+     prompt alone, and teacher-forced against a full forward (a difference
+     only at a bf16 near tie, gap < 0.15; 75% the argmax); every logit
+     finite; prefill ms at 16 and 4,096 tokens and decode ms a step at 2
+     slots (median of 5, synchronised) beside their bounds, the served
+     tokens a second, weight bytes and peak memory; one layer's attention
+     at 4,096 tokens (the flash path) held to the dense path; the reduced
+     qwen3-4b on the card held to the same weights on the CPU.  It
+     launches no SpMV kernel (checked): its products are cuBLAS's;
+ 21. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15)
-and read after it.  The multi-rank phases launch no kernel (the engine
+Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
+20) and read after it.  The multi-rank phases launch no kernel (the engine
 tick has none): their labels are held to phase 4's, which equal the
 kernel-backed BSP's.  The ranks are one pool of spawned processes for all
 the gloo phases; a rank that fails ends the run with a non-zero exit.
@@ -119,6 +132,7 @@ It imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -177,6 +191,16 @@ PPR_BASELINE = {"hits": 2, "misses": 2, "invalidations": 2}
 DIST_RANKS, DIST_TIMEOUT_S, DIST_A2A_REPS = 8, 600, 20
 MAIN_PATH_COUNTS = (1246, 19678958)
 DIST_LOCKSTEP_TICKS, DIST_RANK_TICKS = 20000, 1000
+# lm_serve: qwen3-4b at full width and depth, served as launch/serve's
+# defaults run it (6 requests of 16 tokens, 2 slots, 12 new tokens each);
+# one prefill of LM_LONG tokens takes the flash path (> 2048).  LM_GAP is
+# tests/test_serve.py's bf16 near tie; LM_FLASH_TOL is the CPU test's
+# flash-against-dense tolerance and LM_CARD_TOL its 2-layer logits
+# tolerance against the JAX package (tests/test_torch_lm.py), both of
+# max|out|
+LM_ARCH, LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_MAX_NEW = "qwen3-4b", 6, 2, 16, 12
+LM_LONG, LM_REPS, LM_GAP = 4096, 5, 0.15
+LM_FLASH_TOL, LM_CARD_TOL = 2.4e-2, 5.0e-2
 
 
 class SmokeFailure(Exception):
@@ -1345,6 +1369,234 @@ def dist_rank_phase(np, torch, pool, E, M, get_program, cfg, graph, gdir,
     return out
 
 
+def lm_bounds(cfg, tokens: int, weight_bytes: int, kv_bytes: int) -> dict:
+    """The least time of a forward over ``tokens`` new tokens: the weights
+    (and the KV cache it reads) over the memory rate, or its bf16 products
+    over the tensor cores' peak, whichever is larger.  The products are
+    2 x tokens x the matmul weights (the tied head counted once: the
+    lookup is no product) plus causal attention's QK^T and PV, 2 x 2 x
+    layers x heads x head_dim x tokens x (tokens + 1) / 2 at least."""
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    per_layer = (d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+                 + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff)
+    matmul = 2 * tokens * (L * per_layer + cfg.vocab_size * d)
+    attn = 2 * 2 * L * cfg.num_heads * hd * tokens * (tokens + 1) // 2
+    bytes_ms = (weight_bytes + kv_bytes) / H100_BYTES_PER_S * 1e3
+    ops_ms = (matmul + attn) / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "tflop": (matmul + attn)
+            / 1e12}
+
+
+def median_ms(torch, dev, fn, reps: int = LM_REPS) -> float:
+    """Median host time of ``reps`` synchronised calls, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def lm_near_tie(np, logits_fn, prompt, a, b, where: str) -> bool:
+    """``a`` and ``b`` decode ``prompt``: equal, or at their first
+    difference the full forward on the common prefix puts the two tokens
+    within ``LM_GAP`` (a bf16 near tie).  True when equal."""
+    diff = np.flatnonzero(a != b)
+    if diff.size == 0:
+        return True
+    i = int(diff[0])
+    last = logits_fn(np.concatenate([prompt, a[:i]])[None])[0]
+    gap = abs(float(last[a[i]]) - float(last[b[i]]))
+    check(gap < LM_GAP, f"{where}: token {i} differs ({a[i]} vs {b[i]}) "
+                        f"with a logit gap of {gap}")
+    return False
+
+
+def lm_teacher_forced(np, logits_fn, prompt, got, where: str) -> int:
+    """``tests/test_serve.py``'s rule on one request: every served token
+    is the full forward's argmax on the served prefix or within ``LM_GAP``
+    of it; returns how many are the argmax."""
+    matches = 0
+    for t in range(len(got)):
+        last = logits_fn(np.concatenate([prompt, got[:t]])[None])[0]
+        best = int(last.argmax())
+        if best == int(got[t]):
+            matches += 1
+        else:
+            gap = float(last[best] - last[got[t]])
+            check(gap < LM_GAP, f"{where}: token {t} is {got[t]}, the "
+                                f"argmax {best} is {gap} above it")
+    return matches
+
+
+def lm_serve_phase(np, torch, T, TA, LY, SE, cfg, dev, long_len: int,
+                   cpu_cfg=None) -> dict:
+    """The dense LM served on ``dev`` at ``cfg``: what ``python -m
+    repro_torch.launch.serve --arch <cfg> --no-reduced`` runs (6 requests
+    of 16 tokens, 2 slots, 12 new tokens each), each request held to
+    ``generate`` of its prompt alone and teacher-forced against a full
+    forward; then the prefill and decode times beside their bounds, one
+    prefill of ``long_len`` tokens through the flash path with one layer's
+    attention held to the dense path, and ``cpu_cfg`` on the card against
+    the same weights on the CPU."""
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init_lm(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    n_matrix = sum(p.numel() for p in params if p.dtype == torch.bfloat16)
+    check(n_matrix == cfg.param_count(),
+          f"lm_serve: {n_matrix} bf16 parameters, param_count() "
+          f"{cfg.param_count()}")
+
+    def last_logits(tokens):
+        """The full forward's logits at the last position (fp32, host)."""
+        logits = T.forward(model, cfg, torch.as_tensor(tokens, device=dev))[0]
+        last = logits[:, -1].float()
+        check(bool(torch.isfinite(logits).all()), "lm_serve: a logit is "
+                                                  "not finite")
+        return last.cpu().numpy()
+
+    # ---- the slot server: launch/serve's defaults ----
+    rng = np.random.default_rng(0)
+    s_max = LM_PROMPT + LM_MAX_NEW + 8
+    reqs = [SE.Request(rid, rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                       .astype(np.int32), LM_MAX_NEW)
+            for rid in range(LM_REQUESTS)]
+    warm = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    warm.submit(reqs[0])
+    warm.run()
+    server = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    for r in reqs:
+        server.submit(r)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    done = server.run()
+    _sync(torch, dev)
+    serve_s = time.perf_counter() - t0
+    served = sum(len(v) for v in done.values())
+    check(sorted(done) == list(range(LM_REQUESTS))
+          and all(len(v) == LM_MAX_NEW for v in done.values()),
+          f"lm_serve: served {({k: len(v) for k, v in done.items()})}")
+    equal, argmax = 0, 0
+    for r in reqs:
+        alone = SE.generate(model, cfg, r.prompt[None], LM_MAX_NEW)[0]
+        equal += lm_near_tie(np, last_logits, r.prompt, alone[LM_PROMPT:],
+                             done[r.rid], f"lm_serve request {r.rid}")
+        argmax += lm_teacher_forced(np, last_logits, r.prompt, done[r.rid],
+                                    f"lm_serve request {r.rid}")
+    check(argmax >= 0.75 * served, f"lm_serve: {argmax} of {served} served "
+                                   f"tokens are the full forward's argmax")
+
+    # ---- step times beside their bounds ----
+    prefill = SE.make_prefill_step(cfg)
+    decode = SE.make_decode_step(cfg)
+    kv_row = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+
+    def prefill_ms(n):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                               device=dev)
+
+        def run():
+            caches = T.init_cache(cfg, 1, n, dev)
+            logits, _ = prefill(model, {"tokens": toks}, caches)
+            check(bool(torch.isfinite(logits).all()),
+                  f"lm_serve: prefill {n} logits not finite")
+        return median_ms(torch, dev, run), lm_bounds(cfg, n, weight_bytes,
+                                                     n * kv_row)
+
+    short_ms, short_bound = prefill_ms(LM_PROMPT)
+    long_ms, long_bound = prefill_ms(long_len)
+    caches = SE._slot_positions(T.init_cache(cfg, LM_SLOTS, s_max, dev),
+                                LM_SLOTS)
+    for slot, r in enumerate(reqs[:LM_SLOTS]):
+        one = T.init_cache(cfg, 1, s_max, dev)
+        _, one = prefill(model, {"tokens": torch.as_tensor(
+            r.prompt[None], device=dev)}, one)
+        SE._write_slot(caches, one, slot)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    state = {"caches": caches}
+
+    def step():
+        logits, state["caches"] = decode(model, tok, state["caches"])
+        return logits
+
+    decode_ms = median_ms(torch, dev, step)
+    check(bool(torch.isfinite(step()).all()), "lm_serve: decode logits not "
+                                              "finite")
+    decode_bound = lm_bounds(cfg, LM_SLOTS, weight_bytes,
+                             LM_SLOTS * s_max * kv_row)
+    peak = _peak(torch, dev)
+    # the device's busy share: a window of decode steps, one long prefill
+    profiles = {}
+    if dev.type == "cuda":
+        profiles["decode_x3"] = device_profile(
+            torch, lambda: [step() for _ in range(3)])
+        long_toks = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, long_len)), device=dev)
+        profiles[f"prefill_{long_len}"] = device_profile(
+            torch, lambda: prefill(model, {"tokens": long_toks},
+                                   T.init_cache(cfg, 1, long_len, dev)))
+
+    # ---- one layer's attention at long_len: flash against dense ----
+    x = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, long_len)),
+                        device=dev)
+    blk = model.stacks[0][0]
+    h = LY.rms_norm(T.embed_tokens(model, cfg, x), blk.norm1, cfg.norm_eps)
+    positions = torch.arange(long_len, device=dev)[None]
+    check(long_len > TA.FLASH_THRESHOLD, "lm_serve: the long prefill does "
+                                         "not take the flash path")
+    flash, _ = TA.attention_layer(blk.attn, cfg, h, positions)
+    threshold, TA.FLASH_THRESHOLD = TA.FLASH_THRESHOLD, long_len
+    try:
+        dense, _ = TA.attention_layer(blk.attn, cfg, h, positions)
+    finally:
+        TA.FLASH_THRESHOLD = threshold
+    flash_err = float((flash.float() - dense.float()).abs().max()
+                      / dense.float().abs().max())
+    check(flash_err <= LM_FLASH_TOL, f"lm_serve: flash attention at "
+                                     f"{long_len} tokens is {flash_err} of "
+                                     f"max|out| from the dense path")
+    del model, server, warm, caches, state
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               parameters=cfg.param_count(), weight_bytes=weight_bytes,
+               init_s=init_s, requests=LM_REQUESTS, slots=LM_SLOTS,
+               prompt=LM_PROMPT, max_new=LM_MAX_NEW, served_tokens=served,
+               serve_s=serve_s, tokens_per_s=served / serve_s,
+               equal_to_generate_alone=equal, argmax_share=argmax / served,
+               prefill_ms={LM_PROMPT: short_ms, long_len: long_ms},
+               prefill_bound={LM_PROMPT: short_bound, long_len: long_bound},
+               decode_ms=decode_ms, decode_bound=decode_bound,
+               profiles=profiles or "not measured",
+               max_memory_allocated=peak, flash_vs_dense=flash_err,
+               flash_tol=LM_FLASH_TOL)
+
+    # ---- the reduced config on the card against the CPU ----
+    if cpu_cfg is not None:
+        host = T.init_lm(cpu_cfg, seed=0, device="cpu")
+        card = copy.deepcopy(host).to(dev)
+        toks = rng.integers(0, cpu_cfg.vocab_size, (2, LM_PROMPT))
+        lc = T.forward(host, cpu_cfg, torch.as_tensor(toks))[0].float()
+        lg = T.forward(card, cpu_cfg, torch.as_tensor(toks, device=dev)
+                       )[0].float().cpu()
+        out["card_vs_cpu"] = float((lg - lc).abs().max() / lc.abs().max())
+        out["card_vs_cpu_tol"] = LM_CARD_TOL
+        check(out["card_vs_cpu"] <= LM_CARD_TOL,
+              f"lm_serve: {cpu_cfg.name} on the card is "
+              f"{out['card_vs_cpu']} of max|logit| from the CPU")
+    say("lm_serve", **out)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1355,7 +1607,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.configs import get_graph_config
+        from repro_torch.configs import get_config, get_graph_config
         from repro_torch.configs.base import GraphConfig
         from repro_torch.core import engine as E
         from repro_torch.core import faults as F
@@ -1370,6 +1622,10 @@ def main() -> int:
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
         from repro_torch.launch import mesh as MS
+        from repro_torch.models import attention as TA
+        from repro_torch.models import layers as LY
+        from repro_torch.models import transformer as T
+        from repro_torch.serve import engine as SE
         from repro_torch.serve import graph as SG
     except ImportError as e:
         print(f"[chip_smoke] FAIL: the port is not beside this script "
@@ -1832,9 +2088,18 @@ def main() -> int:
         dist_rank_phase(np, torch, pool, E, M, get_program, cfg_pr, g_pr,
                         gdir, oracle)
         phase_s["dist_rank"] = time.perf_counter() - t_phase
+
+    # ---- 20. the dense LM served at full width (no SpMV kernel on it) ----
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    lm_serve_phase(np, torch, T, TA, LY, SE, get_config(LM_ARCH), dev,
+                   LM_LONG, cpu_cfg=get_config(LM_ARCH).reduced())
+    check(not any(K.spmv_partials.launches_by_form.values()),
+          "lm_serve launched an SpMV kernel")
+    phase_s["lm_serve"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 20. kernels line, card, last line ----
+    # ---- 21. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 

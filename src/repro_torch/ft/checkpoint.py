@@ -11,10 +11,10 @@ leaves the previous checkpoint intact.
 host at once and writes on a background thread (at most one write in
 flight); ``restore(device=...)`` puts every leaf on ``device`` as a
 tensor.  Trees are dicts, tuples, lists and NamedTuples of tensors or
-arrays.  A NamedTuple is rebuilt only if its type is registered here; the
-registry is the JAX package's, which holds the LM types only (they join
-the port with the LM scaffolding), so an engine state restores as a dict
-of its fields, as it does there.
+arrays.  A NamedTuple is rebuilt only if its type is registered here:
+the LM cache types ported so far (``KVCache``, ``LayerCache``), of the
+JAX package's registry; any other, an engine state among them, restores
+as a dict of its fields, as it does there.
 
 npz has no bfloat16: such a leaf is stored as its bit-exact ``uint16``
 view and the dtype map says ``"bfloat16"``; reading it back gives a
@@ -35,6 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models.attention import KVCache
+from repro_torch.models.transformer import LayerCache
 
 SEP = "/"
 
@@ -83,8 +85,9 @@ def _tree_structure(tree):
 
 
 # NamedTuple types restore() rebuilds; an unregistered one comes back as a
-# dict of its fields.  Empty until the LM scaffolding is ported.
-NAMED_TUPLES: dict[str, type] = {}
+# dict of its fields.  The JAX package's registry also holds the SSM,
+# encoder-decoder and optimizer types; they join with their slices.
+NAMED_TUPLES: dict[str, type] = {c.__name__: c for c in (KVCache, LayerCache)}
 
 
 def _rebuild(struct, leaves: dict, prefix=""):

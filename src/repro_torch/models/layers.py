@@ -1,0 +1,125 @@
+"""Shared layer primitives (the counterpart of ``repro.models.layers``).
+
+The dtypes are the reference's: bf16 weights, fp32 norm scales;
+``rms_norm`` and RoPE compute in fp32 and cast back to the input's
+dtype; ``x @ w`` multiplies bf16 by bf16 to a bf16 result.  Random
+init draws from an explicit ``torch.Generator`` (``mk``); the values
+differ from the JAX package's keys, so parity tests carry the JAX
+weights across (``transformer.params_from_numpy``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+PARAM_DTYPE = torch.bfloat16
+
+
+def f32_recip(v: float) -> float:
+    """The float32 reciprocal of ``float32(v)``: XLA compiles a division
+    by a constant as a product with it, so the port multiplies by the
+    same number (a true division is an ulp off for some ``v``)."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+def mk(gen: torch.Generator, shape: Sequence[int],
+       scale: Optional[float] = None, dtype=PARAM_DTYPE,
+       device=None) -> torch.Tensor:
+    """A normal(0, scale) draw in fp32 cast to ``dtype``; the default
+    scale is ``1/sqrt(fan_in)`` (``shape[0]``)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0]) if len(shape) > 1 else 1.0
+    if len(shape) == 0 or scale == 0.0:
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+    v = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (v * scale).to(dtype)
+
+
+# ----------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.sum(xf * xf, dim=-1, keepdim=True) * f32_recip(x.shape[-1])
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+# The reference's activations are jnp expressions, and on bf16 every jnp op
+# rounds to bf16; these repeat them op by op, each constant rounded to
+# the input's dtype as a weak-typed jnp constant is.
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    return x * (1.0 / (torch.exp(-x) + 1.0))  # jax.nn.silu: x * sigmoid(x)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default (tanh) form."""
+    def c(v: float) -> float:
+        return float(torch.tensor(v, dtype=x.dtype))
+    inner = (x + x * x * x * c(0.044715)) * c(math.sqrt(2 / math.pi))
+    return x * ((torch.tanh(inner) + 1.0) * 0.5)
+
+
+def act_fn(name: str):
+    return {"silu": _silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+# ----------------------------------------------------------------------
+# RoPE with partial-rotation support (chatglm/glm "2d" RoPE rotates half).
+def rope_freqs(head_dim: int, fraction: float, theta: float,
+               device=None) -> torch.Tensor:
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exps * f32_recip(rot)))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               fraction: float = 1.0, theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S] (int)."""
+    if theta <= 0:
+        return x  # absolute-position archs (whisper)
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, fraction, theta, x.device)  # [rot/2]
+    rot = inv.shape[0] * 2
+    ang = positions[..., None].float() * inv  # [B,S,rot/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2].float(), xr[..., 1::2].float()
+    o1 = x1 * cos - x2 * sin
+    o2 = x1 * sin + x2 * cos
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+# ----------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, gated: bool,
+             device=None) -> dict:
+    p = {"w_in": mk(gen, (d_model, d_ff), device=device),
+         "w_out": mk(gen, (d_ff, d_model), device=device)}
+    if gated:
+        p["w_gate"] = mk(gen, (d_model, d_ff), device=device)
+    return p
+
+
+def apply_mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ p["w_in"]
+    if "w_gate" in p:
+        h = act_fn(act)(x @ p["w_gate"]) * h
+    else:
+        h = act_fn(act)(h)
+    return h @ p["w_out"]
+
+
+def init_norm(shape_d: int, device=None) -> torch.Tensor:
+    return torch.ones((shape_d,), dtype=torch.float32, device=device)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   device=None) -> torch.Tensor:
+    return mk(gen, (vocab, d_model), scale=0.02, device=device)

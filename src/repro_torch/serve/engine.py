@@ -1,21 +1,37 @@
-"""Admission control for the slot-batching servers.
+"""Serving engine: prefill / decode step factories, ``generate`` and the
+slot server, plus the admission-control primitives (the counterpart of
+``repro.serve.engine``).
 
-Counterpart of the admission half of ``repro.serve.engine``: a bounded
-FIFO with per-item deadlines and an injectable clock
-(:class:`AdmissionQueue`), the typed backpressure rejection
-(:class:`QueueFullError`) and the typed deadline answer
-(:class:`DeadlineExceeded`), which the graph ``QueryServer`` in
-``serve/graph.py`` uses.  Under sustained load the contract is graceful
-degradation: a full queue rejects at submit time (the caller sees
-backpressure at once, nothing is silently dropped), and an admitted
+``make_prefill_step`` / ``make_decode_step`` build the steps;
+``generate`` drives them for one batch; :class:`SlotServer` is a minimal
+continuous-batching manager (fixed slot count, greedy refill) that serves
+mixed-length traffic.  The slot server keeps one cache position per slot
+(a ``[num_slots]`` ``pos``), so a request admitted while another slot is
+mid-decode gets the tokens ``generate`` gives for its prompt alone.  The
+reference keeps one shared position and does not (ROADMAP.md §3).
+
+The admission half is shared by every slot-batching server in the repo
+(the LM ``SlotServer`` here and the graph ``QueryServer`` in
+``serve/graph.py``): a bounded FIFO with per-item deadlines and an
+injectable clock (:class:`AdmissionQueue`), the typed backpressure
+rejection (:class:`QueueFullError`), and the typed deadline answer
+(:class:`DeadlineExceeded`).  Under sustained load the contract is
+graceful degradation: a full queue rejects at submit time (the caller
+sees backpressure at once, nothing is silently dropped), and an admitted
 request that outlives its deadline retires with a typed answer instead
-of holding a slot.  The LM ``SlotServer`` and its prefill and decode
-steps come with the LM scaffolding.
+of holding a slot.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as transformer_mod
+from repro_torch.models.transformer import LM, LayerCache
 
 
 class QueueFullError(RuntimeError):
@@ -93,3 +109,188 @@ class AdmissionQueue:
 
     def __len__(self) -> int:
         return len(self._q)
+
+
+# ======================================================================
+# LM serving
+# ======================================================================
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    def prefill(params: LM, batch: dict, caches):
+        logits, caches, _, _ = transformer_mod.forward(
+            params, cfg, batch["tokens"], mode="prefill", caches=caches)
+        return logits[:, -1:], caches
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    def decode(params: LM, token: torch.Tensor, caches):
+        pos = _cache_pos(caches)
+        B = token.shape[0]
+        positions = pos.reshape(-1, 1).expand(B, 1)  # scalar or [B] pos
+        logits, caches, _, _ = transformer_mod.forward(
+            params, cfg, token, positions=positions, mode="decode",
+            caches=caches)
+        return logits, caches
+    return decode
+
+
+def _kv_caches(caches):
+    """``(stacked, KVCache)`` for every KV cache of the tree; a stacked
+    cache's tensors carry a leading layer dim before the batch dim."""
+    for stack in caches:
+        if isinstance(stack, LayerCache):
+            yield True, stack.kv
+        else:
+            for lc in stack:
+                yield False, lc.kv
+
+
+def _cache_pos(caches) -> torch.Tensor:
+    """Current length (scalar, or one a row): the first layer's."""
+    stacked, kv = next(_kv_caches(caches))
+    return kv.pos[0] if stacked else kv.pos
+
+
+def init_caches(cfg: ModelConfig, batch: int, s_max: int, device=None):
+    return transformer_mod.init_cache(cfg, batch, s_max, device)
+
+
+# ======================================================================
+def generate(params: LM, cfg: ModelConfig, prompt, max_new: int,
+             s_max: Optional[int] = None, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> np.ndarray:
+    """Greedy (or, with ``temperature > 0`` and a ``generator``, sampled)
+    decoding of ``prompt`` [B, S]: returns [B, S + max_new] on the host."""
+    dev = params.embed.device
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, S = prompt.shape
+    caches = init_caches(cfg, B, s_max or (S + max_new), dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    logits, caches = prefill(params, {"tokens": prompt}, caches)
+    tok = _sample(logits[:, -1], temperature, generator)[:, None]  # [B, 1]
+    out = [tok]
+    for _ in range(max_new - 1):
+        logits, caches = decode(params, tok, caches)
+        tok = _sample(logits[:, -1], temperature, generator)[:, None]
+        out.append(tok)
+    return torch.cat([prompt] + [o.to(prompt.dtype) for o in out],
+                     dim=1).cpu().numpy()
+
+
+def _sample(logits: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    if temperature <= 0.0 or generator is None:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+# ======================================================================
+class Request(NamedTuple):
+    rid: int
+    prompt: np.ndarray  # [S]
+    max_new: int
+
+
+class SlotServer:
+    """Minimal continuous batching: fixed decode batch, greedy slot refill.
+
+    A fixed-capacity slot buffer with backpressure (requests queue until
+    a slot frees).  ``max_queue`` bounds the wait queue itself: submit
+    past it raises :class:`QueueFullError` (None keeps it unbounded).
+    Each slot keeps its own cache position, so prompts may differ in
+    length and a slot may be refilled while the others are mid-decode;
+    a free slot's position is held at 0."""
+
+    def __init__(self, params: LM, cfg: ModelConfig, num_slots: int,
+                 s_max: int, max_queue: Optional[int] = None):
+        self.params, self.cfg = params, cfg
+        self.device = params.embed.device
+        self.num_slots, self.s_max = num_slots, s_max
+        self.max_queue = max_queue
+        self.caches = _slot_positions(
+            init_caches(cfg, num_slots, s_max, self.device), num_slots)
+        self.prefill = make_prefill_step(cfg)
+        self.decode = make_decode_step(cfg)
+        self.queue: list[Request] = []
+        self.active: dict[int, dict] = {}  # slot -> {rid, remaining, tokens}
+        self.cur = torch.zeros((num_slots, 1), dtype=torch.int64,
+                               device=self.device)
+        self.done: dict[int, np.ndarray] = {}
+        self.rejected = 0
+
+    def submit(self, req: Request):
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            self.rejected += 1
+            raise QueueFullError(self.max_queue)
+        self.queue.append(req)
+
+    def _admit(self):
+        for slot in range(self.num_slots):
+            while slot not in self.active and self.queue:
+                req = self.queue.pop(0)
+                # per-slot prefill (batch of 1), copied into the slot's rows
+                prompt = torch.as_tensor(req.prompt, device=self.device)[None]
+                caches1 = init_caches(self.cfg, 1, self.s_max, self.device)
+                logits, caches1 = self.prefill(self.params,
+                                               {"tokens": prompt}, caches1)
+                _write_slot(self.caches, caches1, slot)
+                tok = int(torch.argmax(logits[0, -1]))
+                if req.max_new <= 1:  # done at its first token
+                    self.done[req.rid] = np.array([tok])
+                    continue
+                self.cur[slot, 0] = tok
+                self.active[slot] = {"rid": req.rid,
+                                     "remaining": req.max_new - 1,
+                                     "tokens": [tok]}
+
+    def step(self):
+        self._admit()
+        if not self.active:
+            return
+        logits, self.caches = self.decode(self.params, self.cur, self.caches)
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        host = nxt.cpu().numpy()
+        for slot in list(self.active):
+            st = self.active[slot]
+            st["tokens"].append(int(host[slot]))
+            st["remaining"] -= 1
+            if st["remaining"] <= 0:
+                self.done[st["rid"]] = np.array(st["tokens"])
+                del self.active[slot]
+        self.cur = nxt[:, None]
+        free = [s for s in range(self.num_slots) if s not in self.active]
+        if free:
+            for _, kv in _kv_caches(self.caches):
+                kv.pos[..., free] = 0
+
+    def run(self):
+        while self.queue or self.active:
+            self.step()
+        return self.done
+
+
+def _write_slot(full_tree, one_tree, slot: int) -> None:
+    """Copy a batch-of-1 cache into row ``slot`` of the slot server's
+    caches, in place: every K/V tensor's row and the slot's position
+    (the batch dim follows a stacked cache's layer dim)."""
+    for (stacked, full), (_, one) in zip(_kv_caches(full_tree),
+                                         _kv_caches(one_tree)):
+        b = 1 if stacked else 0
+        full.k.select(b, slot).copy_(one.k.select(b, 0))
+        full.v.select(b, slot).copy_(one.v.select(b, 0))
+        full.pos.select(b, slot).copy_(one.pos)
+
+
+def _slot_positions(caches, num_slots: int):
+    """The cache tree with one position a slot: ``pos`` becomes
+    ``[L, num_slots]`` in a stacked cache, ``[num_slots]`` in a layer's."""
+    def per_slot(kv):
+        return kv._replace(pos=torch.zeros(kv.pos.shape + (num_slots,),
+                                           dtype=torch.int32,
+                                           device=kv.pos.device))
+    return tuple(
+        LayerCache(per_slot(stack.kv), stack.ssm)
+        if isinstance(stack, LayerCache)
+        else tuple(LayerCache(per_slot(lc.kv), lc.ssm) for lc in stack)
+        for stack in caches)

@@ -5,8 +5,11 @@ plain version, the main
 path against its CPU run, pagerank against its verdict, fault recovery
 against its CPU run, the crowded and async ticks against their CPU runs,
 the int16/int8 wire codec against its CPU calls, a forked session that
-must leave its primary's tensors untouched, and a small serving plane
-(CC + SSSP, one edge delta) against its CPU run.
+must leave its primary's tensors untouched, a small serving plane
+(CC + SSSP, one edge delta) against its CPU run, and the dense LM: the
+reduced archs' logits against the CPU, the slot server against
+``generate``, the flash prefill against the dense path, and a cache
+checkpoint's round trip.
 
 Every test carries the ``gpu`` marker and skips on a host without a CUDA
 card (decided in the ``cuda`` fixture, not at import).  On a machine with
@@ -521,3 +524,108 @@ def test_exchange_dist_nccl_int16_one_rank(cuda, tmp_path):
                     assert torch.equal(a, b[:, 0])
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- dense LM
+LM_DENSE = ["qwen3-4b", "glm4-9b", "chatglm3-6b", "granite-20b",
+            "chameleon-34b"]
+LM_GAP = 0.15  # a bf16 near tie (tests/test_serve.py)
+
+
+def _lm(dev, arch="qwen3-4b", **kw):
+    """The reduced ``arch`` on the CPU and the same weights on ``dev``."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    host = T.init_lm(cfg, seed=0, device="cpu")
+    return cfg, host, copy.deepcopy(host).to(dev)
+
+
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_lm_logits_on_card_match_cpu(cuda, arch):
+    """Train and prefill logits of each dense arch reduced: the card
+    against the CPU within chip_smoke.py's ``LM_CARD_TOL`` of max|logit|
+    (the port's 2-layer tolerance against the JAX package)."""
+    from repro_torch.models import transformer as T
+    cfg, host, card = _lm(cuda, arch)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)))
+    for mode in ("train", "prefill"):
+        hc = T.init_cache(cfg, 2, 20, "cpu") if mode == "prefill" else None
+        gc = T.init_cache(cfg, 2, 20, cuda) if mode == "prefill" else None
+        lh = T.forward(host, cfg, tokens, mode=mode, caches=hc)[0].float()
+        lg = T.forward(card, cfg, tokens.to(cuda), mode=mode,
+                       caches=gc)[0].float().cpu()
+        assert (lg - lh).abs().max() <= 5.0e-2 * lh.abs().max(), mode
+
+
+@pytest.mark.parametrize("layers", [2, 8])
+def test_lm_slot_server_on_card_matches_generate(cuda, layers):
+    """5 requests on 2 slots, staggered: each equals the card's
+    ``generate`` of its prompt alone, or differs first at a bf16 near
+    tie under the card's full forward."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    cfg, _, card = _lm(cuda, num_layers=layers)
+    rng = np.random.default_rng(3)
+    reqs = [SE.Request(rid, rng.integers(0, cfg.vocab_size, n)
+                       .astype(np.int32), m)
+            for rid, (n, m) in enumerate(zip([12, 9, 16, 10, 14],
+                                             [5, 3, 7, 4, 6]))]
+    server = SE.SlotServer(card, cfg, num_slots=2, s_max=31)
+    for r in reqs:
+        server.submit(r)
+    done = server.run()
+    for r in reqs:
+        got = done[r.rid]
+        alone = SE.generate(card, cfg, r.prompt[None], r.max_new)[0]
+        diff = np.flatnonzero(alone[len(r.prompt):] != got)
+        if diff.size:
+            i = int(diff[0])
+            prefix = np.concatenate([r.prompt, got[:i]])[None]
+            last = T.forward(card, cfg, torch.as_tensor(prefix, device=cuda)
+                             )[0][0, -1].float().cpu()
+            assert abs(float(last[got[i]] - last[alone[len(r.prompt) + i]])
+                       ) < LM_GAP, (r.rid, i)
+
+
+def test_lm_flash_prefill_on_card_matches_dense(cuda):
+    """S = 2,304 > FLASH_THRESHOLD: the flash path against the dense
+    path on the card, within tests/test_torch_lm.py's 2.4e-2 of max|out|."""
+    from repro_torch.models import attention as TA
+    S = 2304
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, h, 16)))
+               .to(cuda, torch.bfloat16) for h in (4, 2, 2))
+    flash = TA.flash_attention(q, k, v).float()
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=cuda))
+    dense = TA.dense_attention(q, k, v, causal[None, None, None]).float()
+    assert (flash - dense).abs().max() <= 2.4e-2 * dense.abs().max()
+
+
+@pytest.mark.parametrize("layers", [2, 8])
+def test_lm_cache_checkpoint_round_trip_on_card(cuda, tmp_path, layers):
+    """A prefilled cache saved by ``CheckpointManager`` restores on the
+    card as ``LayerCache``/``KVCache`` with equal tensors, and decodes."""
+    from repro_torch.ft import checkpoint as CK
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    cfg, _, card = _lm(cuda, num_layers=layers)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 8))).to(cuda)
+    _, caches = SE.make_prefill_step(cfg)(card, {"tokens": tokens},
+                                          T.init_cache(cfg, 2, 12, cuda))
+    CK.CheckpointManager(str(tmp_path)).save(1, caches)
+    tree, _ = CK.CheckpointManager(str(tmp_path)).restore(device=cuda)
+    for (sa, a), (sb, b) in zip(SE._kv_caches(caches), SE._kv_caches(tree)):
+        assert sa == sb and isinstance(b, TA.KVCache)
+        for x, y in zip(a, b):
+            assert y.device.type == "cuda" and torch.equal(x, y)
+    assert all(isinstance(s, T.LayerCache) if layers == 8 else
+               all(isinstance(lc, T.LayerCache) for lc in s) for s in tree)
+    logits, _ = SE.make_decode_step(cfg)(card, tokens[:, -1:], tree)
+    assert torch.isfinite(logits.float()).all()

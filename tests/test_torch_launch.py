@@ -22,6 +22,7 @@ from repro_torch.core import graph as TG  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import semiring_spmv as TK  # noqa: E402
 from repro_torch.launch import graph_mine  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -163,6 +164,20 @@ def test_no_card_no_silent_fallback(monkeypatch):
         graph_mine.main(["--reduced"])
 
 
+def test_lm_serve_without_a_card_raises(monkeypatch):
+    """``repro_torch.launch.serve`` without ``--device cpu`` means the
+    card, and exits without one; so do the LM entry points."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        lm_serve.main([])
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen3-4b").reduced()
+    for call in (lambda: T.init_lm(cfg), lambda: T.init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_cpu_calls_never_count_launches():
     before = dict(TK.spmv_partials.launches_by_form)
     g = TG.build_sharded_graph(get_graph_config("asymp_cc").reduced())
@@ -192,6 +207,9 @@ def test_port_runs_without_jax_or_repro(tmp_path):
         "import repro_torch.core.faults\n"
         "import repro_torch.dist.compression, repro_torch.dist.latency\n"
         "import repro_torch.serve.graph, repro_torch.ft.elastic\n"
+        "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+        "repro_torch.launch.serve.main(['--device', 'cpu', '--requests', "
+        "'3'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -220,6 +238,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert PORT / "dist" / "compression.py" in files
     assert PORT / "serve" / "graph.py" in files
     assert PORT / "ft" / "elastic.py" in files
+    assert PORT / "models" / "transformer.py" in files
+    assert PORT / "launch" / "serve.py" in files
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f

@@ -1,0 +1,273 @@
+"""Port parity for the dense LM: configs, layers, GQA attention (dense,
+decode over a cache, flash prefill) and the transformer's ``forward``.
+
+The same seeded inputs go through the JAX package (jitted, on the CPU)
+and the port (``device="cpu"``); the weights are the JAX package's
+``init_lm`` carried across by ``params_from_numpy``.  bf16 outputs are
+compared in fp32, logits against ``max|logit|``.
+
+Each tolerance is the largest difference seen over seeds 0-4 (noted
+beside it) with at most 4x headroom.  They are not 0 because XLA keeps
+excess precision inside a fusion (``xla_allow_excess_precision``, on by
+default): it skips some bf16 roundings that the jnp ops define and the
+port performs.  With that flag off, the logits agree to within one bf16
+ulp on a few entries and are bitwise equal on most.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs several workers at once
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from repro.configs import get_config as jget  # noqa: E402
+from repro.configs import list_archs as jlist  # noqa: E402
+from repro.models import attention as JA  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+
+from _lm_cases import J_ATTN, J_FWD, carried, f32, rel_err, tt  # noqa: E402
+
+SEEDS = range(5)
+DENSE = ["qwen3-4b", "glm4-9b", "chatglm3-6b", "granite-20b", "chameleon-34b"]
+UNPORTED = {"phi3.5-moe-42b-a6.6b": "slice 2", "deepseek-v3-671b": "slice 4",
+            "hymba-1.5b": "slice 3", "mamba2-780m": "slice 3",
+            "whisper-medium": "slice 5"}
+
+
+def bf16(rng, shape, scale=1.0):
+    return jnp.asarray(rng.standard_normal(shape) * scale, jnp.bfloat16)
+
+
+# ---------------------------------------------------------------- configs
+def test_configs_equal_field_for_field():
+    assert list_archs() == jlist()
+    for arch in list_archs():
+        c, j = get_config(arch), jget(arch)
+        assert dataclasses.asdict(c) == dataclasses.asdict(j), arch
+        assert dataclasses.asdict(c.reduced()) == dataclasses.asdict(
+            j.reduced()), arch
+        assert c.param_count() == j.param_count(), arch
+        assert c.active_param_count() == j.active_param_count(), arch
+        assert ({k: dataclasses.asdict(v) for k, v in c.shapes().items()}
+                == {k: dataclasses.asdict(v) for k, v in j.shapes().items()})
+        for p in ("gated_mlp", "is_moe", "d_inner", "ssm_heads",
+                  "supports_long_context"):
+            assert getattr(c, p) == getattr(j, p), (arch, p)
+    for alias in ("qwen3", "glm4", "granite", "chameleon", "chatglm3"):
+        assert get_config(alias) == get_config(jget(alias).name)
+    assert get_config("qwen3-4b").param_count() == 4_022_272_000
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_build_plan_matches_jax(arch):
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        jsp, = JT.build_plan(jget(arch) if cfg.num_layers > 2
+                             else jget(arch).reduced()).stacks
+        sp, = T.build_plan(cfg).stacks
+        assert (sp.kind, sp.n, sp.scan, sp.d_ff) == (jsp.kind, jsp.n,
+                                                    jsp.scan, jsp.d_ff)
+
+
+def _jax_leaf_shapes(cfg) -> list:
+    """The reference's parameter shapes, a scan stack's ``[L, ...]``
+    leaves split into ``L`` layers, without allocating."""
+    tree = jax.eval_shape(lambda k: JL.split_params(JT.init_lm(k, cfg))[0],
+                          jax.random.PRNGKey(0))
+    out = []
+    plan = JT.build_plan(cfg)
+    for key in ("embed", "final_norm", "head"):
+        if key in tree:
+            out.append(tuple(tree[key].shape))
+    for sp, stack in zip(plan.stacks, tree["stacks"]):
+        for leaf in jax.tree.leaves(stack):
+            out += ([tuple(leaf.shape[1:])] * sp.n if sp.scan
+                    else [tuple(leaf.shape)])
+    return sorted(out)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_meta_init_has_reference_shapes(arch):
+    cfg = get_config(arch)
+    model = T.init_lm(cfg, device="meta")
+    tensors = list(model.parameters())
+    assert all(t.is_meta for t in tensors)
+    assert sorted(tuple(t.shape) for t in tensors) == _jax_leaf_shapes(
+        jget(arch))
+    norms = sum(t.numel() for t in tensors if t.dtype == torch.float32)
+    assert sum(t.numel() for t in tensors) - norms == cfg.param_count()
+    assert all(t.dtype == torch.bfloat16 for t in tensors if t.dim() == 2)
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_families_raise(arch):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
+        T.init_lm(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        T.init_cache(cfg, 1, 8, device="cpu")
+
+
+# ----------------------------------------------------------------- layers
+@pytest.mark.parametrize("seed", SEEDS)
+def test_rms_norm(seed):
+    rng = np.random.default_rng(seed)
+    x = bf16(rng, (2, 16, 64), 3.0)
+    scale = jnp.asarray(rng.uniform(0.5, 1.5, 64), jnp.float32)
+    j = jax.jit(JL.rms_norm)(x, scale)
+    t = TL.rms_norm(tt(x), tt(scale))
+    assert t.dtype == torch.bfloat16
+    # seeds 0-4: bitwise equal
+    assert np.array_equal(f32(j), f32(t))
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_apply_rope(seed, fraction):
+    rng = np.random.default_rng(seed)
+    x = bf16(rng, (2, 24, 4, 16))
+    pos = rng.integers(0, 4096, (2, 24)).astype(np.int32)
+    j = jax.jit(lambda a, p: JL.apply_rope(a, p, fraction=fraction,
+                                           theta=1e6))(x, pos)
+    t = TL.apply_rope(tt(x), torch.from_numpy(pos), fraction=fraction,
+                      theta=1e6)
+    # seeds 0-4: at most 0.0078 (one bf16 ulp at 1 <= |x| < 2), few entries
+    assert np.abs(f32(j) - f32(t)).max() <= 0.03125
+    if fraction < 1:  # the dims past the rotated half pass through
+        assert np.array_equal(f32(t)[..., 8:], f32(x)[..., 8:])
+    xt = tt(x)
+    assert TL.apply_rope(xt, torch.from_numpy(pos), theta=0.0) is xt
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_apply_mlp(seed, act):
+    rng = np.random.default_rng(seed)
+    p = {"w_in": bf16(rng, (64, 128), 0.125),
+         "w_out": bf16(rng, (128, 64), 0.088)}
+    if act == "silu":
+        p["w_gate"] = bf16(rng, (64, 128), 0.125)
+    x = bf16(rng, (2, 16, 64))
+    j = jax.jit(lambda p, x: JL.apply_mlp(p, x, act))(p, x)
+    t = TL.apply_mlp({k: tt(v) for k, v in p.items()}, tt(x), act)
+    # the activations are the jnp ops one by one; seeds 0-4: bitwise equal
+    # but for one entry of seed 1 (silu), 4.9e-8 of max|out|
+    assert rel_err(j, t) <= 1.9e-7
+
+
+# -------------------------------------------------------------- attention
+def _attn_case(seed, S):
+    cfg, tcfg, params, model = carried("qwen3-4b", seed)
+    p = params["stacks"][0][0]["attn"]
+    tp = model.stacks[0][0].attn
+    rng = np.random.default_rng(seed)
+    x = bf16(rng, (2, S, cfg.d_model))
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
+    return cfg, tcfg, p, tp, x, pos
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_attention_prefill_and_decode(seed):
+    S, s_max = 16, 24
+    cfg, tcfg, p, tp, x, pos = _attn_case(seed, S + 1)
+    jc = JA.init_kv_cache(cfg, 2, s_max)
+    tc = TA.init_kv_cache(tcfg, 2, s_max, "cpu")
+    jout, jc = J_ATTN(p, cfg, x[:, :S], pos[:, :S], cache=jc,
+                      mode="prefill")
+    tout, tc = TA.attention_layer(tp, tcfg, tt(x[:, :S]),
+                                  torch.from_numpy(pos[:, :S].copy()),
+                                  cache=tc, mode="prefill")
+    # seeds 0-4: at most 5.6e-4 of max|out| (dense causal path, S = 16)
+    assert rel_err(jout, tout) <= 2.2e-3
+    assert int(tc.pos) == int(jc.pos) == S
+    for a, b in ((jc.k, tc.k), (jc.v, tc.v)):  # seeds 0-4: bitwise equal
+        assert np.array_equal(f32(a), f32(b))
+    step_pos = pos[:, S:]
+    jout, jc = J_ATTN(p, cfg, x[:, S:], step_pos, cache=jc, mode="decode")
+    tout, tc = TA.attention_layer(tp, tcfg, tt(x[:, S:]),
+                                  torch.from_numpy(step_pos.copy()),
+                                  cache=tc, mode="decode")
+    # seeds 0-4: bitwise equal, the output and the written K/V
+    assert np.array_equal(f32(jout), f32(tout))
+    assert int(tc.pos) == int(jc.pos) == S + 1
+    assert np.array_equal(f32(jc.k), f32(tc.k))
+    assert np.array_equal(f32(jc.v), f32(tc.v))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_flash_path_matches_jax_and_dense(seed):
+    """S = 2,304 > FLASH_THRESHOLD: both packages take the flash path;
+    the port's flash equals its dense path on the same q, k, v."""
+    S = 2304
+    assert S > TA.FLASH_THRESHOLD == JA.FLASH_THRESHOLD
+    cfg, tcfg, p, tp, x, pos = _attn_case(seed, S)
+    jout, _ = J_ATTN(p, cfg, x, pos, mode="train")
+    tout, _ = TA.attention_layer(tp, tcfg, tt(x), torch.from_numpy(pos.copy()))
+    # seeds 0-4: at most 7.9e-4 of max|out|
+    assert rel_err(jout, tout) <= 3.0e-3
+    rng = np.random.default_rng(seed)
+    q = tt(bf16(rng, (1, S, 4, 16)))
+    k, v = tt(bf16(rng, (1, S, 2, 16))), tt(bf16(rng, (1, S, 2, 16)))
+    flash = TA.flash_attention(q, k, v)
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool))
+    dense = TA.dense_attention(q, k, v, causal[None, None, None])
+    # seeds 0-4: at most 6.1e-3 of max|out| (the online softmax's other
+    # rounding of p and of the sums)
+    assert rel_err(dense, flash) <= 2.4e-2
+    jflash = jax.jit(lambda q, k, v: JA.flash_attention(q, k, v, causal=True))(
+        *(jnp.asarray(f32(a), jnp.bfloat16) for a in (q, k, v)))
+    # seeds 0-4: at most 2.4e-4 of max|out|
+    assert rel_err(jflash, flash) <= 9.6e-4
+
+
+# ---------------------------------------------------------------- forward
+FORWARD_CASES = [(a, {}) for a in DENSE] + [("qwen3-4b", {"num_layers": 8})]
+
+
+@pytest.mark.parametrize("arch,kw", FORWARD_CASES,
+                         ids=DENSE + ["qwen3-4b-8layers"])
+def test_forward_logits_match_jax(arch, kw):
+    """train and prefill logits, and the prefill caches, for each dense
+    decoder arch reduced; 8 layers take the stacked layout."""
+    B, S = 2, 16
+    # of max|logit| and of max|K/V|; seeds 0-4, the logits and every
+    # layer's K/V: at most 1.42e-2 with 2 layers, 2.61e-2 with 8
+    tol = 1.0e-1 if kw else 5.0e-2
+    cfg, tcfg, params, model = carried(arch, 0, **kw)
+    assert T.build_plan(tcfg).stacks[0].scan == bool(kw)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    jl, _ = J_FWD(params, cfg, tokens, "train", None)
+    tl, _, aux, _ = T.forward(model, tcfg, torch.from_numpy(tokens))
+    assert tl.dtype == torch.bfloat16 and float(aux) == 0.0
+    assert rel_err(jl, tl) <= tol
+    jc = JT.init_cache(cfg, B, S + 4)
+    tc = T.init_cache(tcfg, B, S + 4, "cpu")
+    jl, jc = J_FWD(params, cfg, tokens, "prefill", jc)
+    tl, tc, _, _ = T.forward(model, tcfg, torch.from_numpy(tokens),
+                             mode="prefill", caches=tc)
+    assert rel_err(jl, tl) <= tol
+    jleaves, tleaves = jax.tree.leaves(jc), list(_leaves(tc))
+    assert len(jleaves) == len(tleaves)
+    for a, b in zip(jleaves, tleaves):
+        assert tuple(a.shape) == tuple(b.shape)
+        if a.ndim > 1:  # K/V
+            assert rel_err(a, b) <= tol
+        else:  # pos
+            assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def _leaves(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif tree is not None:
+        for x in tree:
+            yield from _leaves(x)
