@@ -119,11 +119,23 @@ non-zero:
      at 4,096 tokens (the flash path) held to the dense path; the reduced
      qwen3-4b on the card held to the same weights on the CPU.  It
      launches no SpMV kernel (checked): its products are cuBLAS's;
- 21. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+ 21. ``lm_train``, the dense LM trained at full width: qwen3-4b (36 layers,
+     remat "full", AdamW) as ``python -m repro_torch.launch.train --arch
+     qwen3-4b`` runs it (batch 8, seq 128, lr 3e-4 warmed up over 1 of 10
+     steps): every loss and grad norm finite and the mean loss of the last
+     3 steps below the first step's; ms a step and tokens a second beside
+     the step's bound, one profiled step (device busy share, device time
+     by op) and the peak memory; then 2 steps at 1 x 4,096 tokens (the
+     flash forward and its autograd backward, counted), one layer's flash
+     gradients at 4,096 tokens held to dense attention's, the 8-layer
+     reduced model trained 2 steps on the card and on the CPU from the
+     same weights (loss, grad norm, params), and a checkpoint round trip
+     (bitwise, and the next step's loss).  It launches no SpMV kernel;
+ 22. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
-20) and read after it.  The multi-rank phases launch no kernel (the engine
+20, 21) and read after it.  The multi-rank phases launch no kernel (the engine
 tick has none): their labels are held to phase 4's, which equal the
 kernel-backed BSP's.  The ranks are one pool of spawned processes for all
 the gloo phases; a rank that fails ends the run with a non-zero exit.
@@ -201,6 +213,17 @@ DIST_LOCKSTEP_TICKS, DIST_RANK_TICKS = 20000, 1000
 LM_ARCH, LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_MAX_NEW = "qwen3-4b", 6, 2, 16, 12
 LM_LONG, LM_REPS, LM_GAP = 4096, 5, 0.15
 LM_FLASH_TOL, LM_CARD_TOL = 2.4e-2, 5.0e-2
+# lm_train: qwen3-4b at full width and depth trained as launch/train's
+# defaults run it (batch 8, seq 128, lr 3e-4, cosine warm-up over steps //
+# 10); then 2 steps at 1 x LM_LONG tokens (the flash path).  The optimizer
+# and clip move LM_TRAIN_OPT_BYTES a parameter.  LM_FLASH_GRAD_TOL is the
+# CPU test's flash-against-dense gradient tolerance (tests/test_torch_
+# train.py), of max|grad|; LM_TRAIN_CARD_TOL holds the loss and grad norm of
+# the 8-layer reduced model on the card to the CPU's (relative);
+# LM_TRAIN_CKPT_TOL the loss after a restore to the uninterrupted run's
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_LR = 10, 8, 128, 3e-4
+LM_TRAIN_OPT_BYTES = 28
+LM_FLASH_GRAD_TOL, LM_TRAIN_CARD_TOL, LM_TRAIN_CKPT_TOL = 3.2e-2, 1.0e-2, 1e-4
 
 
 class SmokeFailure(Exception):
@@ -1597,6 +1620,223 @@ def lm_serve_phase(np, torch, T, TA, LY, SE, cfg, dev, long_len: int,
     return out
 
 
+def lm_train_bound(cfg, tokens: int, seq: int, param_bytes: int) -> dict:
+    """The least time of one training step over ``tokens`` tokens in
+    sequences of ``seq``: its bf16 products over the tensor cores' peak,
+    then the clip and the optimizer's bytes over the memory rate (they
+    wait for the last gradient, so the two add).  Products: 8 x
+    parameters x tokens (forward 2, backward 4, the full remat's second
+    forward 2, the chunked loss's recomputed head inside it) plus causal
+    attention's QK^T and PV at least, 2 x 2 x layers x heads x head_dim x
+    seq x (seq + 1) / 2 a sequence, four times (forward, recompute,
+    backward 2x).  Bytes: ``param_bytes`` a parameter (the norm's read of
+    the bf16 gradient, the clip's read and write, AdamW's reads of g, m,
+    v, p and writes of m, v, p)."""
+    n = cfg.param_count()
+    attn = 4 * 2 * 2 * cfg.num_layers * cfg.num_heads * cfg.head_dim * (
+        seq * (seq + 1) // 2) * (tokens // seq)
+    flop = 8 * n * tokens + attn
+    ops_ms = flop / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = param_bytes * n / H100_BYTES_PER_S * 1e3
+    return {"bound_ms": ops_ms + bytes_ms, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "tflop": flop / 1e12,
+            "optimizer_gb": param_bytes * n / 1e9}
+
+
+def _train_steps(torch, TR, state, step_fn, batches, dev):
+    """Run ``step_fn`` over ``batches``: (state, losses, grad norms,
+    synchronised ms a step)."""
+    losses, gnorms, ms = [], [], []
+    for b in batches:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+    return state, losses, gnorms, ms
+
+
+def _copied(CK, tree):
+    """A training-state tree with every tensor copied (``from_checkpoint``
+    moves tensors, and a move to their own device is no copy)."""
+    return CK._map_leaves(lambda t: t.clone(), tree)
+
+
+def _max_diff(torch, a: dict, b: dict) -> float:
+    return max(float((x.float() - b[k].float().to(x.device)).abs().max())
+               for k, x in a.items())
+
+
+def lm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, cfg, dev,
+                   long_len: int, small_cfg) -> dict:
+    """The dense LM trained on ``dev`` at ``cfg`` (``python -m
+    repro_torch.launch.train --arch <cfg>``'s defaults: batch 8, seq 128,
+    lr 3e-4 with a cosine warm-up over steps // 10, AdamW, the config's
+    remat), then one step at 1 x ``long_len`` tokens (the flash path and
+    its autograd backward), one layer's flash gradients against dense
+    attention's at ``long_len``, ``small_cfg`` trained on the card and on
+    the CPU from the same weights, and a checkpoint round trip."""
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "parameters": cfg.param_count()}
+    # ---- (a) the launcher's defaults at full width and depth ----
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = TR.init_state(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    out["init_s"] = time.perf_counter() - t0
+    schedule = OPT.cosine_schedule(LM_TRAIN_LR,
+                                   warmup=max(LM_TRAIN_STEPS // 10, 1),
+                                   total=LM_TRAIN_STEPS)
+    step_fn = TR.make_train_step(cfg, schedule=schedule)
+    pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size, LM_TRAIN_SEQ),
+                           LM_TRAIN_BATCH)
+    state, losses, gnorms, ms = _train_steps(
+        torch, TR, state, step_fn,
+        [pipe.next_batch() for _ in range(LM_TRAIN_STEPS)], dev)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"lm_train: loss {losses} grad norm {gnorms}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"lm_train: the mean loss of the last 3 steps {losses[-3:]} is not "
+          f"below the first step's {losses[0]}")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    out.update(batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
+               losses=losses, grad_norms=gnorms, step_ms=ms,
+               step_ms_median=steady, tokens_per_s=tokens / steady * 1e3,
+               bound=lm_train_bound(cfg, tokens, LM_TRAIN_SEQ,
+                                    LM_TRAIN_OPT_BYTES))
+    if dev.type == "cuda":
+        held = {"state": state}
+
+        def profiled():
+            held["state"], m = step_fn(held["state"], pipe.next_batch())
+            return m
+        out["profile"] = device_profile(torch, profiled)
+        state = held.pop("state")
+    out["max_memory_allocated"] = _peak(torch, dev)
+    say("lm_train_main", **out)
+
+    # ---- (b) one step at 1 x long_len: flash forward, autograd backward --
+    check(long_len > TA.FLASH_THRESHOLD, "lm_train: the long step does not "
+                                         "take the flash path")
+    calls = {"n": 0}
+    bwd = TA._flash_bwd
+
+    def counted(*a):
+        calls["n"] += 1
+        return bwd(*a)
+    TA._flash_bwd = counted
+    try:
+        long_pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size,
+                                                       long_len), 1)
+        state, l_losses, l_gn, l_ms = _train_steps(
+            torch, TR, state, step_fn,
+            [long_pipe.next_batch() for _ in range(2)], dev)
+    finally:
+        TA._flash_bwd = bwd
+    check(all(np.isfinite(l_losses)) and all(np.isfinite(l_gn)),
+          f"lm_train: at {long_len} tokens loss {l_losses} grad norm {l_gn}")
+    check(calls["n"] == 2 * cfg.num_layers,
+          f"lm_train: the flash backward ran {calls['n']} times in 2 steps "
+          f"of {cfg.num_layers} layers")
+    long = dict(tokens=long_len, losses=l_losses, grad_norms=l_gn,
+                step_ms=l_ms, flash_backward_calls=calls["n"],
+                bound=lm_train_bound(cfg, long_len, long_len,
+                                     LM_TRAIN_OPT_BYTES),
+                max_memory_allocated=_peak(torch, dev))
+    say("lm_train_long", **long)
+    out["long"] = long
+    del state, step_fn
+
+    # ---- (c) one layer's flash gradients against dense attention ----
+    rng = np.random.default_rng(0)
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def leaf(h):
+        return torch.from_numpy(rng.standard_normal((1, long_len, h, hd))
+                                ).to(dev, torch.bfloat16).requires_grad_()
+    q, k, v = leaf(hq), leaf(hkv), leaf(hkv)
+    dout = torch.from_numpy(rng.standard_normal((1, long_len, hq, hd))
+                            ).to(dev, torch.bfloat16)
+    flash = torch.autograd.grad(TA.flash_attention(q, k, v), (q, k, v), dout)
+    causal = torch.tril(torch.ones(long_len, long_len, dtype=torch.bool,
+                                   device=dev))
+    dense = torch.autograd.grad(
+        TA.dense_attention(q, k, v, causal[None, None, None]), (q, k, v),
+        dout)
+    errs = {n: float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+            for n, a, b in zip(("dq", "dk", "dv"), flash, dense)}
+    check(max(errs.values()) <= LM_FLASH_GRAD_TOL,
+          f"lm_train: flash gradients at {long_len} tokens {errs} of max|grad| "
+          f"from dense attention's")
+    out["flash_grads_vs_dense"] = errs
+    say("lm_train_flash_grads", tokens=long_len, heads=(hq, hkv, hd),
+        rel_err=errs, tol=LM_FLASH_GRAD_TOL)
+    del q, k, v, dout, flash, dense, causal
+
+    # ---- (d) the small config on the card against the CPU ----
+    fixed = TR.make_train_step(small_cfg)  # a constant lr: every step moves
+    small = DP.DataPipeline(DP.SyntheticSource(small_cfg.vocab_size, 32), 4)
+    batches = [small.next_batch() for _ in range(2)]
+    host = TR.init_state(small_cfg, seed=0, device="cpu")
+    card = TR.from_checkpoint(small_cfg, _copied(CK, TR.to_checkpoint(host)),
+                              dev)
+    host, h_loss, h_gn, _ = _train_steps(torch, TR, host, fixed, batches,
+                                         torch.device("cpu"))
+    card, c_loss, c_gn, _ = _train_steps(torch, TR, card, fixed, batches, dev)
+    hp = {k: p.detach() for k, p in T.param_dict(host.params).items()}
+    cp = {k: p.detach() for k, p in T.param_dict(card.params).items()}
+    ulp = max(float(p.float().abs().max()) for p in hp.values()) * 2.0 ** -8
+    bound = 4 * 3e-4 * len(batches) + ulp  # a sign flip of u, each step
+    d = dict(loss_rel=max(abs(a - b) / abs(a) for a, b in zip(h_loss, c_loss)),
+             grad_norm_rel=max(abs(a - b) / a for a, b in zip(h_gn, c_gn)),
+             params_max_abs=_max_diff(torch, cp, hp), params_bound=bound,
+             moments_max_abs=_max_diff(torch, card.opt_state.m,
+                                       host.opt_state.m),
+             tol=LM_TRAIN_CARD_TOL)
+    check(d["loss_rel"] <= LM_TRAIN_CARD_TOL
+          and d["grad_norm_rel"] <= LM_TRAIN_CARD_TOL
+          and d["params_max_abs"] <= bound,
+          f"lm_train: {small_cfg.name} on the card against the CPU: {d}")
+    out["card_vs_cpu"] = d
+    say("lm_train_card_vs_cpu", arch=small_cfg.name,
+        layers=small_cfg.num_layers, losses=[h_loss, c_loss], **d)
+
+    # ---- (e) a checkpoint round trip on the card ----
+    state = TR.from_checkpoint(small_cfg, _copied(CK, TR.to_checkpoint(host)),
+                               dev)
+    with tempfile.TemporaryDirectory() as ck_dir:
+        cm = CK.CheckpointManager(ck_dir)
+        cm.save(int(state.step), TR.to_checkpoint(state),
+                metadata={"pipeline": small.snapshot()}, blocking=False)
+        cm.wait()
+        tree, meta = cm.restore(device=dev)
+    back = TR.from_checkpoint(small_cfg, tree, dev)
+    saved, got = TR.to_checkpoint(state), TR.to_checkpoint(back)
+    same = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(
+        CK._flatten_with_paths(saved).values(),
+        CK._flatten_with_paths(got).values()))
+    check(same and meta["pipeline"] == small.snapshot(),
+          "lm_train: the restored state is not bitwise the saved one")
+    nxt = [small.next_batch()]
+    _, a_loss, _, _ = _train_steps(torch, TR, state, fixed, nxt, dev)
+    _, b_loss, _, _ = _train_steps(torch, TR, back, fixed, nxt, dev)
+    rel = abs(a_loss[0] - b_loss[0]) / abs(a_loss[0])
+    check(rel <= LM_TRAIN_CKPT_TOL, f"lm_train: the step after the restore "
+                                    f"gives loss {b_loss}, uninterrupted "
+                                    f"{a_loss}")
+    out["checkpoint"] = dict(bitwise=same, step=int(back.step),
+                             loss=a_loss[0], restored_loss=b_loss[0],
+                             rel=rel, tol=LM_TRAIN_CKPT_TOL)
+    say("lm_train_checkpoint", **out["checkpoint"])
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1627,6 +1867,9 @@ def main() -> int:
         from repro_torch.models import transformer as T
         from repro_torch.serve import engine as SE
         from repro_torch.serve import graph as SG
+        from repro_torch.data import pipeline as DP
+        from repro_torch.train import optimizer as OPT
+        from repro_torch.train import trainer as TR
     except ImportError as e:
         print(f"[chip_smoke] FAIL: the port is not beside this script "
               f"({e})", flush=True)
@@ -2097,9 +2340,19 @@ def main() -> int:
     check(not any(K.spmv_partials.launches_by_form.values()),
           "lm_serve launched an SpMV kernel")
     phase_s["lm_serve"] = time.perf_counter() - t_phase
+
+    # ---- 21. the dense LM trained at full width (no SpMV kernel on it) ----
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    lm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, get_config(LM_ARCH),
+                   dev, LM_LONG, dataclasses.replace(
+                       get_config(LM_ARCH).reduced(), num_layers=8))
+    check(not any(K.spmv_partials.launches_by_form.values()),
+          "lm_train launched an SpMV kernel")
+    phase_s["lm_train"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 21. kernels line, card, last line ----
+    # ---- 22. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 

@@ -1,9 +1,19 @@
-"""The engine's wire formats: row-quantized floats and narrowed ints.
+"""Message and gradient compression: quantized buffers and a compressed
+all-reduce (the counterpart of ``repro.dist.compression``).
 
-Counterpart of the message half of ``repro.dist.compression``
-(``quantize_rows``, ``dequantize_rows``, ``narrow_int``, ``widen_int``),
-which ``repro_torch.dist.exchange`` runs on every send buffer when the
-wire mode is ``int16`` or ``int8``:
+Two consumers, one toolbox:
+
+  * the trainer's gradient exchange: :func:`compressed_psum` (an int8
+    error-feedback mean all-reduce over a ``torch.distributed`` group)
+    and :func:`ef_compress_tree` (the same quantize/dequantize round trip
+    with a carried residual, which the microbatch loop of
+    ``train/trainer.py`` runs where the per-microbatch reduction would go
+    on the wire).  Whole-tensor int8 on a symmetric 127-level grid; the
+    decode's ``scale / 127`` is a product with the float32 reciprocal of
+    127, as XLA compiles the reference under ``jit``;
+  * the engine's message buffers (``quantize_rows``, ``dequantize_rows``,
+    ``narrow_int``, ``widen_int``), which ``repro_torch.dist.exchange``
+    runs on every send buffer when the wire mode is ``int16`` or ``int8``:
 
   * float payloads (SSSP distances, widest-path widths) quantize per
     destination row against the row's largest finite magnitude, rounded
@@ -23,20 +33,94 @@ of two, so the two spellings differ by an ulp).  A product with that
 reciprocal is also what the card computes for a division by a host
 scalar, so the decode is device-independent as written.
 
-The gradient half (``ef_compress``, ``compressed_psum``) is not ported
-(ROADMAP queue 1, item 14).
-
 Layer contract: imports only torch and numpy; ``repro_torch.dist.exchange``
-is its only consumer.
+and ``repro_torch.train.trainer`` are its consumers.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _EPS = 1e-30
+_R127 = float(np.float32(1.0) / np.float32(127.0))  # XLA's scale / 127.0
+
+
+# ======================================================================
+# Whole-tensor quantization (gradients)
+# ======================================================================
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x -> (int8 codes, float32 0-d scale); symmetric 127-level grid."""
+    scale = torch.clamp(torch.amax(torch.abs(x)), min=_EPS).to(torch.float32)
+    q = torch.round(x.to(torch.float32) / scale * 127.0)
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape,
+                    dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * (scale * _R127)).reshape(shape).to(dtype)
+
+
+def ef_compress(x: torch.Tensor, error: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback round trip: returns (decoded, new residual).
+
+    ``decoded`` is what the wire would deliver; the residual (what
+    quantization dropped) is for the caller to add into the next round's
+    input, which keeps compressed reductions unbiased over time."""
+    if error is not None:
+        x = x + error
+    q, s = quantize_int8(x)
+    decoded = dequantize_int8(q, s, x.shape, x.dtype)
+    return decoded, _residual(x, q, s)
+
+
+def _residual(x, q, scale) -> torch.Tensor:
+    """``x - q * (scale / 127)`` with one rounding (XLA's fused form)."""
+    return torch.addcmul(x.to(torch.float32), q.to(torch.float32),
+                         scale * _R127, value=-1).to(x.dtype)
+
+
+def ef_compress_tree(grads: dict, errors: Optional[dict]
+                     ) -> Tuple[dict, dict]:
+    """:func:`ef_compress` over every leaf of a dict (the port's parameter
+    dict, ``transformer.param_dict``); ``errors=None`` starts at zero."""
+    decoded, new_err = {}, {}
+    for k, g in grads.items():
+        decoded[k], new_err[k] = ef_compress(
+            g, torch.zeros_like(g) if errors is None else errors[k])
+    return decoded, new_err
+
+
+def compressed_psum(x: torch.Tensor, group=None,
+                    error: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 error-feedback mean all-reduce over the ranks of ``group``.
+
+    Every rank quantizes against a shared scale (an ``all_reduce`` MAX),
+    sums the codes as int32 and dequantizes the sum: 1 byte an element on
+    the wire plus one float32 scale.  Returns (mean, residual); callers
+    carry the residual into the next call."""
+    if error is not None:
+        x = x + error
+    scale = torch.amax(torch.abs(x)).to(torch.float32).reshape(1)
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(scale[0], min=_EPS)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale * 127.0),
+                    -127, 127).to(torch.int8)
+    n = torch.ones(1, dtype=torch.float32, device=x.device)
+    dist.all_reduce(n, group=group)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, group=group)
+    out = (total.to(torch.float32) * (scale * _R127) / n[0]).to(x.dtype)
+    return out, _residual(x, q, scale)
+
+
+# ======================================================================
+# Row-quantized buffers (engine wire format for float payloads)
+# ======================================================================
 
 
 def _qmax(bits: int) -> int:

@@ -12,9 +12,12 @@ host at once and writes on a background thread (at most one write in
 flight); ``restore(device=...)`` puts every leaf on ``device`` as a
 tensor.  Trees are dicts, tuples, lists and NamedTuples of tensors or
 arrays.  A NamedTuple is rebuilt only if its type is registered here:
-the LM cache types ported so far (``KVCache``, ``LayerCache``), of the
-JAX package's registry; any other, an engine state among them, restores
-as a dict of its fields, as it does there.
+the LM cache types (``KVCache``, ``LayerCache``) and the training state
+(``TrainState``, ``AdamWState``, ``AdafactorState``), of the JAX
+package's registry; any other, an engine state among them, restores as a
+dict of its fields, as it does there.  A training checkpoint holds the
+reference's trees (``train/trainer.py::to_checkpoint``), so one written
+by either package restores in the other.
 
 npz has no bfloat16: such a leaf is stored as its bit-exact ``uint16``
 view and the dtype map says ``"bfloat16"``; reading it back gives a
@@ -37,6 +40,8 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import LayerCache
+from repro_torch.train.optimizer import AdafactorState, AdamWState
+from repro_torch.train.trainer import TrainState
 
 SEP = "/"
 
@@ -85,9 +90,12 @@ def _tree_structure(tree):
 
 
 # NamedTuple types restore() rebuilds; an unregistered one comes back as a
-# dict of its fields.  The JAX package's registry also holds the SSM,
-# encoder-decoder and optimizer types; they join with their slices.
-NAMED_TUPLES: dict[str, type] = {c.__name__: c for c in (KVCache, LayerCache)}
+# dict of its fields.  The JAX package's registry also holds the SSM and
+# encoder-decoder cache types; they join with their slices (item 14
+# slices 3 and 5).
+NAMED_TUPLES: dict[str, type] = {
+    c.__name__: c for c in (KVCache, LayerCache, TrainState, AdamWState,
+                            AdafactorState)}
 
 
 def _rebuild(struct, leaves: dict, prefix=""):

@@ -4,8 +4,12 @@ counterpart of the non-MLA half of ``repro.models.attention``).
 Two execution paths for causal attention, chosen by shape:
   * dense masked attention — sequences up to ``FLASH_THRESHOLD``, and
     decode (a dense read over the KV cache);
-  * flash forward          — longer prefill: a loop over KV chunks with
-    an online-softmax carry (live memory O(Sq * chunk), not O(Sq * Sk)).
+  * flash attention        — longer train and prefill sequences: a loop
+    over KV chunks with an online-softmax carry (live memory
+    O(Sq * chunk), not O(Sq * Sk)), and the FlashAttention-2 backward as
+    a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
+    the forward saves (q, k, v, out, lse) and the backward recomputes
+    each chunk's scores from them.
 
 The arithmetic is the reference's, in torch ops: scores in fp32 scaled
 by ``1/sqrt(hd)``, masked with ``NEG_INF``, an fp32 softmax, and the
@@ -19,6 +23,7 @@ tensors in place and return a cache holding them with the new ``pos``.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -94,18 +99,34 @@ def dense_attention(q, k, v, mask) -> torch.Tensor:
     return _gqa_values(p, v)
 
 
-def flash_attention(q, k, v, chunk: int = FLASH_CHUNK) -> torch.Tensor:
-    """Causal online-softmax forward over KV chunks of ``chunk`` keys
-    (the reference's ``_flash_scan``): out [B,Sq,Hq,dv]."""
-    B, Sq, Hq, hd = q.shape
-    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    rep = Hq // Hkv
-    n_chunks = -(-Sk // chunk)
-    pad = n_chunks * chunk - Sk
+def _chunk_mask(ci: int, chunk: int, Sk: int, q_pos: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+    """Valid-key mask of KV chunk ``ci``: [Sq, chunk] (causal) or
+    [chunk]."""
+    kv_pos = ci * chunk + torch.arange(chunk, device=q_pos.device)
+    valid = kv_pos < Sk
+    if causal:
+        return valid[None, :] & (kv_pos[None, :] <= q_pos[:, None])
+    return valid
+
+
+def _pad_keys(k, v, chunk: int):
+    n_chunks = -(-k.shape[1] // chunk)
+    pad = n_chunks * chunk - k.shape[1]
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    q_pos = torch.arange(Sq, device=q.device)
+    return k, v, n_chunks
+
+
+def _flash_scan(q, k, v, causal: bool, q_offset: int, chunk: int):
+    """Online-softmax forward over KV chunks of ``chunk`` keys.  Returns
+    (out [B,Sq,Hq,dv], lse [B,Hkv,rep,Sq] fp32)."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = Hq // Hkv
+    k, v, n_chunks = _pad_keys(k, v, chunk)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
     m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, Hkv, rep, Sq), dtype=torch.float32, device=q.device)
@@ -114,10 +135,8 @@ def flash_attention(q, k, v, chunk: int = FLASH_CHUNK) -> torch.Tensor:
     for ci in range(n_chunks):
         kb = k[:, ci * chunk:(ci + 1) * chunk]
         vb = v[:, ci * chunk:(ci + 1) * chunk]
-        kv_pos = ci * chunk + torch.arange(chunk, device=q.device)
-        mask = (kv_pos < Sk)[None, :] & (kv_pos[None, :] <= q_pos[:, None])
         s = _gqa_scores(q, kb)  # [B,Hkv,rep,Sq,chunk] f32
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_chunk_mask(ci, chunk, Sk, q_pos, causal), s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -125,8 +144,71 @@ def flash_attention(q, k, v, chunk: int = FLASH_CHUNK) -> torch.Tensor:
         pv = torch.einsum("bhrqk,bkhd->bhrqd", p.to(vb.dtype), vb).float()
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, dv).to(q.dtype)
+    l_safe = torch.clamp_min(l, 1e-30)
+    out = acc / l_safe[..., None]
+    lse = m + torch.log(l_safe)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, dv).to(q.dtype)
+    return out, lse
+
+
+def _flash_bwd(causal: bool, q_offset: int, chunk: int, res, dout):
+    """FlashAttention-2 backward: D = rowsum(dout * out), then the scores
+    recomputed per KV chunk from the saved (q, k, v, out, lse); dq is
+    accumulated over the chunks, dk and dv are each chunk's.  Never
+    materializes the [Sq, Sk] matrix: O(Sq * chunk) live memory."""
+    q, k, v, out, lse = res
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    k, v, n_chunks = _pad_keys(k, v, chunk)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    do_r = dout.reshape(B, Sq, Hkv, rep, dv).to(f32)
+    q_r = q.reshape(B, Sq, Hkv, rep, hd).to(f32)
+    D = torch.einsum("bqhrd,bqhrd->bhrq", do_r,
+                     out.reshape(B, Sq, Hkv, rep, dv).to(f32))
+    dq = torch.zeros((B, Sq, Hkv, rep, hd), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for ci in range(n_chunks):
+        kb = k[:, ci * chunk:(ci + 1) * chunk]
+        vb = v[:, ci * chunk:(ci + 1) * chunk]
+        s = _gqa_scores(q, kb)  # f32, already scaled
+        s = torch.where(_chunk_mask(ci, chunk, Sk, q_pos, causal), s, NEG_INF)
+        p = torch.exp(s - lse[..., None])  # [B,Hkv,rep,Sq,C]
+        dvs.append(torch.einsum("bhrqk,bqhrd->bkhd", p, do_r))
+        dp = torch.einsum("bqhrd,bkhd->bhrqk", do_r, vb.to(f32))
+        ds = p * (dp - D[..., None]) * scale  # grad wrt the raw q.k
+        dq = dq + torch.einsum("bhrqk,bkhd->bqhrd", ds, kb.to(f32))
+        dks.append(torch.einsum("bhrqk,bqhrd->bkhd", ds, q_r))
+    dk = torch.cat(dks, dim=1)[:, :Sk]
+    dvv = torch.cat(dvs, dim=1)[:, :Sk]
+    return (dq.reshape(B, Sq, Hq, hd).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` pair: the forward saves
+    (q, k, v, out, lse), the backward is :func:`_flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, chunk):
+        out, lse = _flash_scan(q, k, v, causal, q_offset, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _flash_bwd(*ctx.args, ctx.saved_tensors, dout) + (None,) * 3
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    chunk: int = FLASH_CHUNK) -> torch.Tensor:
+    """Memory-bounded attention: the online-softmax forward and the FA2
+    backward, out [B,Sq,Hq,dv].  Live memory is O(Sq * chunk) per head in
+    both passes instead of O(Sq * Sk)."""
+    return _Flash.apply(q, k, v, causal, q_offset, chunk)
 
 
 # ======================================================================

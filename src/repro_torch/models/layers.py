@@ -6,6 +6,10 @@ dtype; ``x @ w`` multiplies bf16 by bf16 to a bf16 result.  Random
 init draws from an explicit ``torch.Generator`` (``mk``); the values
 differ from the JAX package's keys, so parity tests carry the JAX
 weights across (``transformer.params_from_numpy``).
+
+The losses (``cross_entropy``, ``chunked_softmax_xent``) are the
+reference's fp32 NLL plus z-loss.  The reference's ``shard()``
+annotations on the loss chunks have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -123,3 +128,53 @@ def init_norm(shape_d: int, device=None) -> torch.Tensor:
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
                    device=None) -> torch.Tensor:
     return mk(gen, (vocab, d_model), scale=0.02, device=device)
+
+
+# ----------------------------------------------------------------------
+def _chunk_nll_sum(h_c: torch.Tensor, head: torch.Tensor, y_c: torch.Tensor,
+                   z_loss: float) -> torch.Tensor:
+    logits = (h_c @ head).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    return torch.sum(nll)
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, head: torch.Tensor,
+                         labels: torch.Tensor, *, chunk: int = 512,
+                         z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token NLL (fp32) + z-loss without materializing the full
+    [B, S, V] fp32 logits.
+
+    A loop over sequence chunks of ``c`` tokens (the largest divisor of S
+    up to ``chunk``, found as the reference does); each chunk's body runs
+    under ``torch.utils.checkpoint``, so its logits are recomputed in the
+    backward and live logits stay O(c * V)."""
+    B, S, D = hidden.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    hs = hidden.reshape(B, S // c, c, D)
+    ys = labels.reshape(B, S // c, c)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(S // c):
+        total = total + checkpoint(_chunk_nll_sum, hs[:, i], head, ys[:, i],
+                                   z_loss, use_reentrant=False)
+    return total * f32_recip(B * S)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token NLL (fp32) + z-loss. logits [..., V]; labels [...] int."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll) * f32_recip(nll.numel())

@@ -4,12 +4,28 @@
 A :class:`ModelPlan` (static, derived from the config) describes the
 layer stacks.  The reference runs a stack of >= ``MIN_SCAN`` layers
 under ``lax.scan`` over parameters and caches stacked along a leading
-layer dim; the port runs every stack as a loop over :class:`Block`
-modules, and keeps the reference's cache layout (``StackPlan.scan``: one
-:class:`LayerCache` of ``[L, ...]`` tensors, else a tuple of per-layer
-caches) so caches cross between the packages as they are.
-:func:`params_from_numpy` carries the reference's parameter tree, stacked
-or per layer, into the port's modules.
+layer dim; the port runs every stack as a loop over its layers, and
+keeps the reference's layouts (``StackPlan.scan``): a scan stack is one
+:class:`StackedBlocks` whose parameters are ``[L, ...]`` tensors and one
+:class:`LayerCache` of ``[L, ...]`` tensors, any other stack a list of
+:class:`Block` modules and a tuple of per-layer caches.  So
+``param_dict`` has the reference's leaves, the optimizer's per-leaf rules
+(weight decay on ``ndim >= 2``, Adafactor's factoring, int8 scales) see
+the shapes the reference's see, and parameters, moments and caches cross
+between the packages as they are (:func:`params_from_numpy`,
+:func:`params_to_numpy`, :func:`to_tree`, :func:`from_tree`).
+
+Training: :func:`lm_loss` (the chunked loss over the final norm's output)
+and :func:`_remat_wrap` (``cfg.remat``: ``"full"`` recomputes a whole
+block in the backward, ``"dots"`` keeps the no-batch-dim products, i.e.
+``aten.mm``, and recomputes the rest, ``bmm`` included).
+
+Grad mode: :func:`init_lm` and :func:`params_from_numpy` give frozen
+weights (``requires_grad=False``), so a forward builds no autograd
+graph; the train step (``train/trainer.py``) unfreezes the model it
+trains.  The serving steps (``serve/engine.py``) run under
+``torch.no_grad()``, so a model the trainer has unfrozen still serves
+without a graph.
 
 Only the dense family is ported (``family`` "dense" or "vlm" with no
 MoE, SSM, MLA, encoder-decoder, sliding-window or MTP flag);
@@ -18,6 +34,7 @@ the ROADMAP slice that ports them.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
@@ -25,12 +42,15 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (apply_mlp, init_embedding, init_mlp,
-                                       init_norm, mk, rms_norm)
+from repro_torch.models.layers import (apply_mlp, chunked_softmax_xent,
+                                       init_embedding, init_mlp, init_norm,
+                                       mk, rms_norm)
 
 MIN_SCAN = 8
 
@@ -124,18 +144,73 @@ class Block(nn.Module):
         self.mlp = nn.ParameterDict({k: _frozen(v) for k, v in mlp.items()})
 
 
+class LayerParams(NamedTuple):
+    """One layer of a :class:`StackedBlocks`: views of its ``[L, ...]``
+    parameters, with a :class:`Block`'s attribute names."""
+    norm1: torch.Tensor
+    attn: dict
+    norm2: torch.Tensor
+    mlp: dict
+
+
+class StackedBlocks(Block):
+    """A scan stack's layers, every parameter ``[L, ...]`` as in the
+    reference's stacked tree.  Indexing or iterating gives
+    :class:`LayerParams` views; each leaf is split with one ``unbind``, so
+    the backward stacks that leaf's per-layer gradients once (indexing
+    layer by layer would scatter each into a zero tensor of the whole
+    leaf)."""
+
+    def __len__(self) -> int:
+        return self.norm1.shape[0]
+
+    def layers(self) -> list[LayerParams]:
+        n1, n2 = self.norm1.unbind(0), self.norm2.unbind(0)
+        attn = {k: v.unbind(0) for k, v in self.attn.items()}
+        mlp = {k: v.unbind(0) for k, v in self.mlp.items()}
+        return [LayerParams(n1[i], {k: v[i] for k, v in attn.items()}, n2[i],
+                            {k: v[i] for k, v in mlp.items()})
+                for i in range(len(self))]
+
+    def __iter__(self):
+        return iter(self.layers())
+
+    def __getitem__(self, i: int) -> LayerParams:
+        return self.layers()[i]
+
+
+def _stacked(layers, n: int) -> StackedBlocks:
+    """``n`` per-layer parameter dicts (``norm1``, ``attn``, ``norm2``,
+    ``mlp``), taken one at a time from the iterable ``layers``, copied
+    into ``[n, ...]`` leaves (no second copy of the stack is ever live)."""
+    stacked = None
+    for i, layer in enumerate(layers):
+        if stacked is None:
+            stacked = _map_tree(lambda t: t.new_empty((n,) + t.shape), layer)
+        for key, val in layer.items():
+            if isinstance(val, dict):
+                for k, v in val.items():
+                    stacked[key][k][i].copy_(v)
+            else:
+                stacked[key][i].copy_(val)
+    return StackedBlocks(**stacked)
+
+
 class LM(nn.Module):
-    """The decoder LM: embedding, stacks of :class:`Block`, final norm
-    and the head (the embedding's transpose when tied)."""
+    """The decoder LM: embedding, stacks of layers (a list of
+    :class:`Block` or one :class:`StackedBlocks`), final norm and the head
+    (the embedding's transpose when tied)."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
-                 final_norm: torch.Tensor, stacks: list[list[Block]],
+                 final_norm: torch.Tensor, stacks: list,
                  head: Optional[torch.Tensor] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = _frozen(embed)
         self.final_norm = _frozen(final_norm)
-        self.stacks = nn.ModuleList(nn.ModuleList(s) for s in stacks)
+        self.stacks = nn.ModuleList(
+            s if isinstance(s, StackedBlocks) else nn.ModuleList(s)
+            for s in stacks)
         self.head = None if head is None else _frozen(head)
 
     def forward(self, tokens, positions=None, mode: str = "train",
@@ -144,27 +219,31 @@ class LM(nn.Module):
                        compute_logits)
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, d_ff: int,
-               device=None) -> Block:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, d_ff: int,
+                device=None) -> dict:
     d = cfg.d_model
-    return Block(init_norm(d, device),
-                 attn_mod.init_attention(gen, cfg, device),
-                 init_norm(d, device),
-                 init_mlp(gen, d, d_ff, cfg.gated_mlp, device))
+    return {"norm1": init_norm(d, device),
+            "attn": attn_mod.init_attention(gen, cfg, device),
+            "norm2": init_norm(d, device),
+            "mlp": init_mlp(gen, d, d_ff, cfg.gated_mlp, device)}
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
             device: DeviceLike = None) -> LM:
-    """Random weights from a ``torch.Generator`` seeded with ``seed``,
-    drawn on ``device`` (``"meta"`` builds the shapes and allocates
-    nothing)."""
+    """Random frozen weights from a ``torch.Generator`` seeded with
+    ``seed``, drawn on ``device`` layer by layer (``"meta"`` builds the
+    shapes and allocates nothing); a scan stack's layers are copied into
+    its ``[L, ...]`` leaves as they are drawn."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
     gen.manual_seed(seed)
     plan = build_plan(cfg)
     embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dev)
-    stacks = [[init_block(gen, cfg, sp.d_ff, dev) for _ in range(sp.n)]
-              for sp in plan.stacks]
+    stacks = []
+    for sp in plan.stacks:
+        layers = (_init_layer(gen, cfg, sp.d_ff, dev) for _ in range(sp.n))
+        stacks.append(_stacked(layers, sp.n) if sp.scan
+                      else [Block(**layer) for layer in layers])
     head = None
     if not cfg.tie_embeddings:
         head = mk(gen, (cfg.d_model, cfg.vocab_size), scale=0.02, device=dev)
@@ -186,46 +265,136 @@ def _tensor(a) -> torch.Tensor:
 
 def params_from_numpy(cfg: ModelConfig, tree: dict,
                       device: DeviceLike = None) -> LM:
-    """The reference's value tree (``split_params(init_lm(key, cfg))[0]``
-    as numpy arrays) as the port's :class:`LM` on ``device``: a scan
-    stack's ``[L, ...]`` leaves are split into ``L`` blocks, a tuple
-    stack is taken layer by layer."""
+    """The reference's value tree (``split_params(init_lm(key, cfg))[0]``,
+    numpy arrays or tensors) as the port's frozen :class:`LM` on
+    ``device``: a scan stack's ``[L, ...]`` leaves become a
+    :class:`StackedBlocks` as they are, a tuple stack a list of
+    :class:`Block`."""
     dev = resolve_device(device)
 
     def t(a) -> torch.Tensor:
         return _tensor(a).to(dev)
 
-    def block(layer: dict) -> Block:
-        return Block(t(layer["norm1"]),
-                     {k: t(v) for k, v in layer["attn"].items()},
-                     t(layer["norm2"]),
-                     {k: t(v) for k, v in layer["mlp"].items()})
-
-    def layer_of(stack: dict, i: int) -> dict:
-        return {k: layer_of(v, i) if isinstance(v, dict) else v[i]
-                for k, v in stack.items()}
+    def layer(d: dict) -> dict:
+        return {"norm1": t(d["norm1"]),
+                "attn": {k: t(v) for k, v in d["attn"].items()},
+                "norm2": t(d["norm2"]),
+                "mlp": {k: t(v) for k, v in d["mlp"].items()}}
 
     stacks = []
     for sp, stack in zip(build_plan(cfg).stacks, tree["stacks"]):
-        layers = ([layer_of(stack, i) for i in range(sp.n)] if sp.scan
-                  else list(stack))
-        stacks.append([block(layer) for layer in layers])
+        stacks.append(StackedBlocks(**layer(stack)) if sp.scan
+                      else [Block(**layer(d)) for d in stack])
     head = t(tree["head"]) if "head" in tree else None
     return LM(cfg, t(tree["embed"]), t(tree["final_norm"]), stacks, head)
+
+
+def param_dict(model: LM) -> dict[str, torch.Tensor]:
+    """The model's parameters by name, in the reference's leaf layout:
+    the dict that the optimizer, the gradient compression and the train
+    step walk (``"stacks.0.attn.w_q"`` is a scan stack's ``[L, ...]``
+    leaf, ``"stacks.0.1.attn.w_q"`` layer 1's of a tuple stack)."""
+    return dict(model.named_parameters())
+
+
+def to_tree(named: dict) -> dict:
+    """A dict keyed as :func:`param_dict` (parameters, gradients or
+    moments) as the reference's value tree: nested dicts, with
+    ``"stacks"`` and a tuple stack's layers as tuples."""
+    root: dict = {}
+    for name, x in named.items():
+        node = root
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = x
+
+    def tuples(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return tuple(tuples(node[str(i)]) for i in range(len(node)))
+        return {k: tuples(v) for k, v in node.items()}
+    return tuples(root)
+
+
+def from_tree(tree: dict) -> dict:
+    """Invert :func:`to_tree`: the reference's value tree (of tensors) as
+    a dict keyed as :func:`param_dict`."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v)
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}{i}.", v)
+        else:
+            out[prefix[:-1]] = node
+    walk("", tree)
+    return out
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    """A host array of ``x``; bfloat16 as an ``ml_dtypes`` array (the
+    dtype the JAX package's arrays have), imported only here."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes
+        return x.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return x.numpy()
+
+
+def params_to_numpy(model: LM) -> dict:
+    """The inverse of :func:`params_from_numpy`: the reference's value
+    tree of host arrays (stacked ``[L, ...]`` leaves for a scan stack)."""
+    return _map_tree(_numpy, to_tree(param_dict(model)))
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_tree(fn, v) for v in tree)
+    return fn(tree)
 
 
 # ======================================================================
 # Apply
 # ======================================================================
-def apply_block(p: Block, cfg: ModelConfig, x: torch.Tensor,
+def apply_block(p, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, mode: str,
                 cache: LayerCache) -> tuple[torch.Tensor, LayerCache]:
+    """One layer; ``p`` is a :class:`Block` or a :class:`LayerParams`."""
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     a_out, new_kv = attn_mod.attention_layer(p.attn, cfg, h, positions,
                                              cache=cache.kv, mode=mode)
     x = x + a_out
     y = apply_mlp(p.mlp, rms_norm(x, p.norm2, cfg.norm_eps), cfg.act)
     return x + y, LayerCache(new_kv, cache.ssm)
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    """``"dots"``: keep the outputs of ``aten.mm`` (the products with no
+    batch dim, as ``dots_with_no_batch_dims_saveable`` does), recompute
+    every other op, ``bmm`` included."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig, mode: str):
+    """``fn`` under ``cfg.remat`` in train mode: ``"full"`` checkpoints
+    the whole call (only its inputs are saved), ``"dots"`` saves the
+    ``aten.mm`` outputs (:func:`_save_mm`), ``"none"`` is ``fn``."""
+    if mode != "train" or cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_mm)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
 def apply_stacks(params: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -236,9 +405,12 @@ def apply_stacks(params: LM, cfg: ModelConfig, x: torch.Tensor,
     for si, (sp, blocks) in enumerate(zip(plan.stacks, params.stacks)):
         cache_s = caches[si] if caches is not None else None
         if cache_s is None:
+            def layer_fn(xc, pl):
+                return apply_block(pl, cfg, xc, positions, mode,
+                                   LayerCache(None, None))[0]
+            layer_fn = _remat_wrap(layer_fn, cfg, mode)
             for blk in blocks:
-                x, _ = apply_block(blk, cfg, x, positions, mode,
-                                   LayerCache(None, None))
+                x = layer_fn(x, blk)
             new_caches.append(None)
         elif sp.scan:  # layer li's cache is row li of the stacked tensors
             k, v, pos = cache_s.kv
@@ -283,3 +455,22 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
     if not compute_logits:
         return None, new_caches, aux, x
     return lm_logits(params, cfg, x), new_caches, aux, x
+
+
+# ======================================================================
+# Training loss
+# ======================================================================
+def lm_loss(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """``(total, {"nll", "aux", "loss"})``: the chunked softmax
+    cross-entropy of the final norm's output against ``labels`` plus the
+    aux loss (0 for the dense stack).  deepseek's MTP head waits for item
+    14 slice 4 (``build_plan`` raises, naming it)."""
+    build_plan(cfg)
+    _, _, aux, hidden = forward(params, cfg, tokens, mode="train",
+                                compute_logits=False)
+    head = params.embed.T if cfg.tie_embeddings else params.head
+    h_norm = rms_norm(hidden, params.final_norm, cfg.norm_eps)
+    loss = chunked_softmax_xent(h_norm, head, labels)
+    total = loss + aux
+    return total, {"nll": loss, "aux": aux, "loss": total}

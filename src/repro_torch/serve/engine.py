@@ -10,6 +10,12 @@ mixed-length traffic.  The slot server keeps one cache position per slot
 mid-decode gets the tokens ``generate`` gives for its prompt alone.  The
 reference keeps one shared position and does not (ROADMAP.md §3).
 
+Serving builds no autograd graph: the steps, ``generate`` and the slot
+server run under ``torch.no_grad()``, so a model the trainer has
+unfrozen (``train/trainer.py``) serves as a frozen one does.  (Not
+``inference_mode``: a cache made outside it and written in place inside
+it, as a caller's ``init_cache``, must stay an ordinary tensor.)
+
 The admission half is shared by every slot-batching server in the repo
 (the LM ``SlotServer`` here and the graph ``QueryServer`` in
 ``serve/graph.py``): a bounded FIFO with per-item deadlines and an
@@ -115,6 +121,7 @@ class AdmissionQueue:
 # LM serving
 # ======================================================================
 def make_prefill_step(cfg: ModelConfig) -> Callable:
+    @torch.no_grad()
     def prefill(params: LM, batch: dict, caches):
         logits, caches, _, _ = transformer_mod.forward(
             params, cfg, batch["tokens"], mode="prefill", caches=caches)
@@ -123,6 +130,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
+    @torch.no_grad()
     def decode(params: LM, token: torch.Tensor, caches):
         pos = _cache_pos(caches)
         B = token.shape[0]
@@ -156,6 +164,7 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, device=None):
 
 
 # ======================================================================
+@torch.no_grad()
 def generate(params: LM, cfg: ModelConfig, prompt, max_new: int,
              s_max: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> np.ndarray:
@@ -244,6 +253,7 @@ class SlotServer:
                                      "remaining": req.max_new - 1,
                                      "tokens": [tok]}
 
+    @torch.no_grad()
     def step(self):
         self._admit()
         if not self.active:

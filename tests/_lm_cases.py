@@ -29,7 +29,7 @@ J_FWD = jax.jit(lambda p, cfg, t, mode, c: JT.forward(
 def f32(a) -> np.ndarray:
     """A JAX array or a torch tensor as fp32 numpy."""
     if torch.is_tensor(a):
-        return a.float().numpy()
+        return a.detach().float().numpy()
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 

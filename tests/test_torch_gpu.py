@@ -629,3 +629,64 @@ def test_lm_cache_checkpoint_round_trip_on_card(cuda, tmp_path, layers):
                all(isinstance(lc, T.LayerCache) for lc in s) for s in tree)
     logits, _ = SE.make_decode_step(cfg)(card, tokens[:, -1:], tree)
     assert torch.isfinite(logits.float()).all()
+
+
+# ------------------------------------------------------------- LM training
+def test_lm_flash_gradients_on_card_match_dense(cuda):
+    """qwen3-4b's heads (32 on 8 KV heads of 128) at 2,304 tokens: the
+    flash ``autograd.Function``'s dq, dk, dv against autograd through the
+    dense path on the card, within tests/test_torch_train.py's 3.2e-2 of
+    max|grad| (chip_smoke.py's ``LM_FLASH_GRAD_TOL``)."""
+    from repro_torch.models import attention as TA
+    S = 2304
+    rng = np.random.default_rng(0)
+
+    def leaf(h):
+        return torch.from_numpy(rng.standard_normal((1, S, h, 128))).to(
+            cuda, torch.bfloat16).requires_grad_()
+    q, k, v = leaf(32), leaf(8), leaf(8)
+    dout = torch.from_numpy(rng.standard_normal((1, S, 32, 128))).to(
+        cuda, torch.bfloat16)
+    flash = torch.autograd.grad(TA.flash_attention(q, k, v), (q, k, v), dout)
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=cuda))
+    dense = torch.autograd.grad(TA.dense_attention(
+        q, k, v, causal[None, None, None]), (q, k, v), dout)
+    for a, b in zip(flash, dense):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert (a.float() - b.float()).abs().max() <= \
+            3.2e-2 * b.float().abs().max()
+
+
+def test_lm_train_steps_on_card_match_cpu(cuda):
+    """The 8-layer reduced qwen3-4b (the stacked layout) trained 2 steps
+    from the same weights and batches on the card and on the CPU: loss
+    and grad norm within chip_smoke.py's ``LM_TRAIN_CARD_TOL`` (1e-2,
+    relative), every parameter within 4 x lr a step plus one bf16 ulp of
+    the largest weight (an update whose direction flipped)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.ft import checkpoint as CK
+    from repro_torch.models import transformer as T
+    from repro_torch.train import trainer as TR
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), num_layers=8)
+    step = TR.make_train_step(cfg)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 32)),
+                "labels": rng.integers(0, cfg.vocab_size, (4, 32))}
+               for _ in range(2)]
+    host = TR.init_state(cfg, 0, "cpu")
+    card = TR.from_checkpoint(cfg, CK._map_leaves(
+        lambda t: t.clone(), TR.to_checkpoint(host)), cuda)
+    assert card.params.embed.device.type == "cuda"
+    for b in batches:
+        host, mh = step(host, b)
+        card, mc = step(card, b)
+        for key in ("loss", "grad_norm"):
+            h, c = float(mh[key]), float(mc[key])
+            assert abs(h - c) <= 1e-2 * abs(h), key
+    hp, cp = T.param_dict(host.params), T.param_dict(card.params)
+    ulp = max(float(p.detach().abs().max()) for p in hp.values()) * 2.0 ** -8
+    for k, p in hp.items():
+        assert (cp[k].detach().cpu().float() - p.detach().float()
+                ).abs().max() <= 4 * 3e-4 * len(batches) + ulp, k

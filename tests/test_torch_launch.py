@@ -23,6 +23,7 @@ from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import semiring_spmv as TK  # noqa: E402
 from repro_torch.launch import graph_mine  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -178,6 +179,39 @@ def test_lm_serve_without_a_card_raises(monkeypatch):
             call()
 
 
+def test_lm_train_without_a_card_raises(monkeypatch):
+    """``repro_torch.launch.train`` without ``--device cpu`` means the
+    card, and exits without one; so does the trainer's ``init_state``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        lm_train.main(["--arch", "qwen3-4b", "--reduced"])
+    from repro_torch.configs import get_config
+    from repro_torch.train import trainer as TR
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TR.init_state(get_config("qwen3-4b").reduced())
+
+
+def test_lm_train_launcher_resumes_at_the_pipeline_offset(tmp_path, capsys):
+    """``--arch qwen3-4b --reduced --steps 4 --device cpu`` with a
+    checkpoint every 2 steps; with the last checkpoint gone, ``--resume``
+    continues from step 2 at the saved pipeline offset and gives the
+    uninterrupted run's last two losses bitwise."""
+    argv = ["--arch", "qwen3-4b", "--reduced", "--steps", "4", "--device",
+            "cpu", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    full = lm_train.main(argv)
+    assert full["start"] == 0 and full["step"] == 4 and full["offset"] == 32
+    assert len(full["losses"]) == 4
+    assert all(np.isfinite(v) for v in full["losses"].values())
+    assert sorted(os.listdir(tmp_path)) == ["step_0000000002",
+                                            "step_0000000004"]
+    shutil.rmtree(tmp_path / "step_0000000004")
+    capsys.readouterr()
+    resumed = lm_train.main(argv + ["--resume"])
+    assert "resumed from step 2 (pipeline offset 16)" in capsys.readouterr().out
+    assert resumed["start"] == 2 and resumed["offset"] == 32
+    assert resumed["losses"] == {i: full["losses"][i] for i in (2, 3)}
+
+
 def test_cpu_calls_never_count_launches():
     before = dict(TK.spmv_partials.launches_by_form)
     g = TG.build_sharded_graph(get_graph_config("asymp_cc").reduced())
@@ -210,6 +244,10 @@ def test_port_runs_without_jax_or_repro(tmp_path):
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "repro_torch.launch.serve.main(['--device', 'cpu', '--requests', "
         "'3'])\n"
+        "import repro_torch.launch.train, repro_torch.data.pipeline\n"
+        "import repro_torch.train.trainer, repro_torch.train.optimizer\n"
+        "repro_torch.launch.train.main(['--arch', 'qwen3-4b', '--reduced', "
+        "'--steps', '2', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -240,6 +278,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert PORT / "ft" / "elastic.py" in files
     assert PORT / "models" / "transformer.py" in files
     assert PORT / "launch" / "serve.py" in files
+    for new in ("launch/train.py", "train/trainer.py", "train/optimizer.py",
+                "data/pipeline.py"):
+        assert PORT / new in files
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f

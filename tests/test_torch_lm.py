@@ -77,34 +77,27 @@ def test_build_plan_matches_jax(arch):
                                                     jsp.scan, jsp.d_ff)
 
 
-def _jax_leaf_shapes(cfg) -> list:
-    """The reference's parameter shapes, a scan stack's ``[L, ...]``
-    leaves split into ``L`` layers, without allocating."""
+def _jax_leaves(cfg) -> dict:
+    """The reference's parameter leaves, keyed by the port's names
+    (``T.from_tree``), as (shape, dtype), without allocating."""
     tree = jax.eval_shape(lambda k: JL.split_params(JT.init_lm(k, cfg))[0],
                           jax.random.PRNGKey(0))
-    out = []
-    plan = JT.build_plan(cfg)
-    for key in ("embed", "final_norm", "head"):
-        if key in tree:
-            out.append(tuple(tree[key].shape))
-    for sp, stack in zip(plan.stacks, tree["stacks"]):
-        for leaf in jax.tree.leaves(stack):
-            out += ([tuple(leaf.shape[1:])] * sp.n if sp.scan
-                    else [tuple(leaf.shape)])
-    return sorted(out)
+    return {k: (tuple(v.shape), str(v.dtype))
+            for k, v in T.from_tree(tree).items()}
 
 
 @pytest.mark.parametrize("arch", DENSE)
 def test_meta_init_has_reference_shapes(arch):
+    """The port's parameters are the reference's leaves, name for name:
+    a scan stack's ``[L, ...]`` leaves stacked as there, bf16 matrices and
+    fp32 norm scales."""
     cfg = get_config(arch)
-    model = T.init_lm(cfg, device="meta")
-    tensors = list(model.parameters())
-    assert all(t.is_meta for t in tensors)
-    assert sorted(tuple(t.shape) for t in tensors) == _jax_leaf_shapes(
-        jget(arch))
-    norms = sum(t.numel() for t in tensors if t.dtype == torch.float32)
-    assert sum(t.numel() for t in tensors) - norms == cfg.param_count()
-    assert all(t.dtype == torch.bfloat16 for t in tensors if t.dim() == 2)
+    named = T.param_dict(T.init_lm(cfg, device="meta"))
+    assert all(t.is_meta for t in named.values())
+    assert {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for k, t in named.items()} == _jax_leaves(jget(arch))
+    norms = sum(t.numel() for t in named.values() if t.dtype == torch.float32)
+    assert sum(t.numel() for t in named.values()) - norms == cfg.param_count()
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
