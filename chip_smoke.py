@@ -131,13 +131,44 @@ non-zero:
      reduced model trained 2 steps on the card and on the CPU from the
      same weights (loss, grad norm, params), and a checkpoint round trip
      (bitwise, and the next step's loss).  It launches no SpMV kernel;
- 22. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+ 22. ``lm_moe_serve``, the MoE family served at full width: phi3.5-moe
+     (d 4096, 32/8 x 128 GQA, 16 experts top-2, d_ff 6400; 16 of its 32
+     layers, a scan stack of [L, E, D, F] expert leaves, 21,067,464,704
+     bf16 parameters from a seeded generator on the card) under the serve
+     launcher's defaults (6 requests of 16 tokens, 2 slots, 12 new
+     tokens): every logit finite; the layer-0 MoE output of a 2-row decode
+     step and of a 4,096-token prefill held to the plain per-token fp32
+     MoE with the same selections and the host's replay of the keep mask;
+     each request's first token teacher-forced against a full forward (a
+     prefill groups the prompt as the full forward does); reported, not
+     gated: the requests equal to ``generate`` alone and the later tokens'
+     argmax share (decode buckets each step's tokens alone, a full forward
+     the whole sequence: capacity drops differ by the reference's
+     semantics, ROADMAP §3), the dropped pairs a decode step, prefill ms at
+     16 and 4,096 tokens and decode ms beside their bounds, peak memory and
+     busy share; the reduced phi3.5 on the card against the CPU;
+ 23. ``lm_moe_train``: phi3.5-moe at 4 of 32 layers (5,463,867,392
+     parameters) trained as ``python -m repro_torch.launch.train --arch
+     phi3.5-moe-42b-a6.6b --layers 4`` runs it (AdamW, remat "full", batch
+     8 x seq 128, 10 steps): every loss, aux and grad norm finite, the
+     mean loss of the last 3 below the first; ms a step, tokens a second,
+     a profiled step, peak; then a checkpoint round trip of the 8-layer
+     reduced config (the stacked expert leaves), bitwise and the next loss
+     equal;
+ 24. ``moe_a2a``: one phi3.5-moe layer at full width expert-parallel on 4
+     gloo ranks sharing the card, 4 x 512 tokens, on data 1 x model 4 and
+     data 2 x model 2 (the FSDP gather): each rank's output block held to
+     the plain per-token reference with the keep mask of the host's replay
+     of the routing (sender and receiver drops), the global aux to one
+     process's; the collectives' ms and bytes a rank;
+ 25. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
-20, 21) and read after it.  The multi-rank phases launch no kernel (the engine
-tick has none): their labels are held to phase 4's, which equal the
-kernel-backed BSP's.  The ranks are one pool of spawned processes for all
+20, 21, 22) and read after it.  The LM phases (20-24) launch no SpMV
+kernel (checked): they reach no ``pl.pallas_call`` in the reference.  The
+multi-rank phases launch no kernel (the engine tick has none): their
+labels are held to phase 4's, which equal the kernel-backed BSP's.  The ranks are one pool of spawned processes for all
 the gloo phases; a rank that fails ends the run with a non-zero exit.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -224,6 +255,21 @@ LM_FLASH_TOL, LM_CARD_TOL = 2.4e-2, 5.0e-2
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_LR = 10, 8, 128, 3e-4
 LM_TRAIN_OPT_BYTES = 28
 LM_FLASH_GRAD_TOL, LM_TRAIN_CARD_TOL, LM_TRAIN_CKPT_TOL = 3.2e-2, 1.0e-2, 1e-4
+# the MoE phases: phi3.5-moe at full width (d 4096, 16 experts top-2, d_ff
+# 6400), depth cut to fit the card: MOE_SERVE_LAYERS served (a scan stack,
+# 42.1 GB of weights), MOE_TRAIN_LAYERS trained (AdamW, ~68 GB).  One MoE
+# layer runs expert-parallel on MOE_RANKS gloo ranks sharing the card,
+# MOE_BATCH x MOE_SEQ tokens, on each of MOE_MESHES.  MOE_PLAIN_TOL holds
+# a bf16 MoE output to the plain per-token fp32 one (of max|y|; a CPU
+# sweep at d 512-1024 gave 3.5e-3-5.3e-3); MOE_AUX_TOL the mesh's aux to
+# one process's (relative; a routing flip at a near tie moves it ~1e-5);
+# MOE_CARD_SHARE the share of the reduced model's positions within
+# LM_CARD_TOL on the card against the CPU (tests/test_torch_moe.py's
+# rule: the rest are routing flips)
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 16, 4
+MOE_RANKS, MOE_BATCH, MOE_SEQ, MOE_REPS, MOE_SEED = 4, 4, 512, 5, 20
+MOE_MESHES = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
+MOE_PLAIN_TOL, MOE_AUX_TOL, MOE_CARD_SHARE = 2.0e-2, 1e-4, 0.75
 
 
 class SmokeFailure(Exception):
@@ -1837,6 +1883,588 @@ def lm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, cfg, dev,
     return out
 
 
+# ======================================================================
+# The MoE family (phi3.5-moe at full width; no SpMV kernel on any of it)
+# ======================================================================
+def moe_keep(np, sel, C: int):
+    """The reference's bucket rule replayed on the host: a (token, slot)
+    pair of one group ``sel`` [T, k] is kept when fewer than ``C``
+    earlier pairs, in (token, slot) order, picked its expert."""
+    flat = sel.reshape(-1)
+    keep = np.zeros(flat.size, bool)
+    seen = {}
+    for i, e in enumerate(flat.tolist()):
+        keep[i] = seen.get(e, 0) < C
+        seen[e] = seen.get(e, 0) + 1
+    return keep.reshape(sel.shape)
+
+
+def moe_plain(torch, p: dict, x, gate, sel, keep):
+    """The plain per-token fp32 MoE: y_t = sum_j keep_tj * gate_tj *
+    expert_{sel_tj}(x_t), each expert's gated MLP (silu) in fp32 on the
+    bf16 weights upcast; x [T, D], gate/sel/keep [T, k]."""
+    xf = x.float()
+    y = torch.zeros_like(xf)
+    keep = torch.as_tensor(keep, device=x.device)
+    for e in range(p["w_in"].shape[0]):
+        t_i, j_i = torch.nonzero((sel == e) & keep, as_tuple=True)
+        if t_i.numel() == 0:
+            continue
+        xe = xf[t_i]
+        h = xe @ p["w_in"][e].float()
+        g = xe @ p["w_gate"][e].float()
+        out = (g * torch.sigmoid(g) * h) @ p["w_out"][e].float()
+        y.index_add_(0, t_i, out * gate[t_i, j_i, None])
+    return y
+
+
+class MoeTap:
+    """Wraps ``models/moe.py::apply_moe`` while active: counts each call's
+    dropped pairs (on the device; read once at the end) and keeps the
+    first call's parameters, input and output (layer 0).  The library is
+    untouched: the transformer calls ``moe.apply_moe`` through the
+    module, as ``lm_train`` wraps the flash backward."""
+
+    def __init__(self, torch, MOE):
+        self.torch, self.MOE = torch, MOE
+        self.calls, self.drops, self.first = [], [], None
+
+    def __enter__(self):
+        torch, MOE, apply = self.torch, self.MOE, self.MOE.apply_moe
+
+        def tapped(p, cfg, x):
+            G, Tg = MOE.groups_of(x)
+            _, _, sel = MOE.route(p, cfg, x.reshape(G, Tg, -1))
+            self.drops.append((MOE._pair_ranks(sel, cfg.num_experts)
+                               >= MOE.capacity(cfg, Tg)).sum())
+            self.calls.append(tuple(x.shape))
+            y, aux = apply(p, cfg, x)
+            if self.first is None:
+                self.first = ({k: v.detach() for k, v in p.items()},
+                              x.detach(), y.detach())
+            return y, aux
+        self._apply = apply
+        MOE.apply_moe = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.apply_moe = self._apply
+
+    def dropped(self, decode_only: bool = False) -> int:
+        """Pairs dropped over the calls (``decode_only``: the calls of one
+        token a row)."""
+        picked = [n for n, s in zip(self.drops, self.calls)
+                  if s[1] == 1 or not decode_only]
+        return int(self.torch.stack(picked).sum()) if picked else 0
+
+
+def moe_layer_vs_plain(np, torch, MOE, cfg, tap, where: str) -> dict:
+    """The layer-0 MoE call ``tap`` kept, against ``moe_plain`` with the
+    same selections and the host replay of the keep mask."""
+    p, x, y = tap.first
+    G, Tg = MOE.groups_of(x)
+    D = x.shape[-1]
+    _, gate, sel = MOE.route(p, cfg, x.reshape(G, Tg, D))
+    C = MOE.capacity(cfg, Tg)
+    keep = np.concatenate([moe_keep(np, s, C) for s in sel.cpu().numpy()])
+    k = cfg.experts_per_token
+    ref = moe_plain(torch, p, x.reshape(-1, D), gate.reshape(-1, k),
+                    sel.reshape(-1, k), keep)
+    err = float((y.reshape(-1, D).float() - ref).abs().max()
+                / ref.abs().max())
+    check(err <= MOE_PLAIN_TOL, f"{where}: layer 0's MoE output is {err} of "
+                                f"max|y| from the plain per-token reference")
+    return {"tokens": int(x.shape[0] * x.shape[1]), "groups": G,
+            "capacity": C, "dropped_pairs": int((~keep).sum()),
+            "rel_err": err, "tol": MOE_PLAIN_TOL}
+
+
+def moe_bounds(cfg, tokens: int, weight_bytes: int, kv_bytes: int,
+               buffer_rows: int) -> dict:
+    """``lm_bounds`` for an MoE forward: the expert products run on the
+    whole ``[E, C]`` buffer (``buffer_rows`` = G * E * C rows a layer,
+    empty slots included), 3 x 2 x D x F each; the router, attention and
+    the head as a dense forward's."""
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    attn_w = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    experts = 3 * 2 * buffer_rows * d * cfg.d_ff * L
+    proj = 2 * tokens * (L * (attn_w + d * cfg.num_experts)
+                         + cfg.vocab_size * d)
+    attn = 2 * 2 * L * cfg.num_heads * hd * tokens * (tokens + 1) // 2
+    bytes_ms = (weight_bytes + kv_bytes) / H100_BYTES_PER_S * 1e3
+    ops_ms = (experts + proj + attn) / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "tflop": {"experts": experts / 1e12, "projections": proj / 1e12,
+                      "attention": attn / 1e12}}
+
+
+def lm_moe_serve_phase(np, torch, T, MOE, SE, cfg, dev, long_len: int,
+                       cpu_cfg) -> dict:
+    """phi3.5-moe (16 of 32 layers, a scan stack) served on ``dev`` as
+    ``python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b
+    --no-reduced`` serves it, at that depth: the launcher's defaults,
+    each request's tokens against ``generate`` of its prompt alone and a
+    full forward (counted, gated on the first token only: see the
+    module docstring), the decode step and a ``long_len`` prefill held
+    against the plain per-token MoE at layer 0, times beside their
+    bounds, and the reduced config on the card against the CPU."""
+    _sync(torch, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init_lm(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    n_matrix = sum(p.numel() for p in params if p.dtype == torch.bfloat16)
+    check(n_matrix == cfg.param_count(),
+          f"lm_moe_serve: {n_matrix} bf16 parameters, param_count() "
+          f"{cfg.param_count()}")
+    check(T.build_plan(cfg).stacks[0].scan and tuple(
+        model.stacks[0].moe["w_in"].shape) == (cfg.num_layers,
+                                              cfg.num_experts, cfg.d_model,
+                                              cfg.d_ff),
+          "lm_moe_serve: the MoE stack is not the [L, E, D, F] layout")
+
+    def last_logits(tokens):
+        logits = T.forward(model, cfg, torch.as_tensor(tokens, device=dev))[0]
+        check(bool(torch.isfinite(logits).all()),
+              "lm_moe_serve: a logit is not finite")
+        return logits[:, -1].float().cpu().numpy()
+
+    # ---- the slot server: launch/serve's defaults ----
+    rng = np.random.default_rng(0)
+    s_max = LM_PROMPT + LM_MAX_NEW + 8
+    reqs = [SE.Request(rid, rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                       .astype(np.int32), LM_MAX_NEW)
+            for rid in range(LM_REQUESTS)]
+    warm = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    warm.submit(reqs[0])
+    warm.run()
+    server = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    for r in reqs:
+        server.submit(r)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    done = server.run()
+    _sync(torch, dev)
+    serve_s = time.perf_counter() - t0
+    served = sum(len(v) for v in done.values())
+    check(sorted(done) == list(range(LM_REQUESTS))
+          and all(len(v) == LM_MAX_NEW for v in done.values()),
+          f"lm_moe_serve: served {({k: len(v) for k, v in done.items()})}")
+    # the same traffic again, counting each MoE call's dropped pairs
+    counted = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    for r in reqs:
+        counted.submit(r)
+    with MoeTap(torch, MOE) as tap:
+        again = counted.run()
+    decode_steps = sum(1 for s in tap.calls if s[1] == 1) // cfg.num_layers
+    decode_drops = tap.dropped(decode_only=True)
+    same_twice = all(np.array_equal(again[k], v) for k, v in done.items())
+    equal, argmax, first = 0, 0, 0
+    for r in reqs:
+        alone = SE.generate(model, cfg, r.prompt[None], LM_MAX_NEW)[0]
+        equal += bool(np.array_equal(alone[LM_PROMPT:], done[r.rid]))
+        # the first token comes from a prefill, which groups the prompt as
+        # a full forward does: the teacher-forced rule holds for it
+        first += lm_teacher_forced(np, last_logits, r.prompt,
+                                   alone[LM_PROMPT:LM_PROMPT + 1],
+                                   f"lm_moe_serve request {r.rid}")
+        for t in range(1, LM_MAX_NEW):
+            last = last_logits(alone[None, :LM_PROMPT + t])[0]
+            argmax += int(last.argmax()) == int(alone[LM_PROMPT + t])
+    check(first >= 0.75 * LM_REQUESTS, f"lm_moe_serve: {first} of "
+          f"{LM_REQUESTS} first tokens are the full forward's argmax")
+
+    # ---- step times beside their bounds ----
+    prefill = SE.make_prefill_step(cfg)
+    decode = SE.make_decode_step(cfg)
+    kv_row = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    E, k = cfg.num_experts, cfg.experts_per_token
+
+    def prefill_ms(n):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                               device=dev)
+
+        def run():
+            caches = T.init_cache(cfg, 1, n, dev)
+            logits, _ = prefill(model, {"tokens": toks}, caches)
+            check(bool(torch.isfinite(logits).all()),
+                  f"lm_moe_serve: prefill {n} logits not finite")
+        rows = E * MOE.capacity(cfg, n)
+        return median_ms(torch, dev, run), moe_bounds(
+            cfg, n, weight_bytes, n * kv_row, rows), toks
+
+    short_ms, short_bound, _ = prefill_ms(LM_PROMPT)
+    long_ms, long_bound, long_toks = prefill_ms(long_len)
+    with MoeTap(torch, MOE) as tap:
+        prefill(model, {"tokens": long_toks}, T.init_cache(cfg, 1, long_len,
+                                                           dev))
+    long_check = moe_layer_vs_plain(np, torch, MOE, cfg, tap,
+                                    f"lm_moe_serve prefill {long_len}")
+    long_check["dropped_pairs_all_layers"] = tap.dropped()
+    caches = SE._slot_positions(T.init_cache(cfg, LM_SLOTS, s_max, dev),
+                                LM_SLOTS)
+    for slot, r in enumerate(reqs[:LM_SLOTS]):
+        one = T.init_cache(cfg, 1, s_max, dev)
+        _, one = prefill(model, {"tokens": torch.as_tensor(
+            r.prompt[None], device=dev)}, one)
+        SE._write_slot(caches, one, slot)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1)),
+                          device=dev)
+    state = {"caches": caches}
+
+    def step():
+        logits, state["caches"] = decode(model, tok, state["caches"])
+        return logits
+
+    decode_ms = median_ms(torch, dev, step)
+    with MoeTap(torch, MOE) as tap:
+        check(bool(torch.isfinite(step()).all()),
+              "lm_moe_serve: decode logits not finite")
+    decode_check = moe_layer_vs_plain(np, torch, MOE, cfg, tap,
+                                      "lm_moe_serve decode")
+    decode_check["dropped_pairs_all_layers"] = tap.dropped()
+    decode_bound = moe_bounds(cfg, LM_SLOTS, weight_bytes,
+                              LM_SLOTS * s_max * kv_row,
+                              E * MOE.capacity(cfg, LM_SLOTS))
+    peak = _peak(torch, dev)
+    profiles = {"decode_x3": device_profile(
+        torch, lambda: [step() for _ in range(3)]),
+        f"prefill_{long_len}": device_profile(
+        torch, lambda: prefill(model, {"tokens": long_toks},
+                               T.init_cache(cfg, 1, long_len, dev)))}
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               parameters=cfg.param_count(), weight_bytes=weight_bytes,
+               init_s=init_s, requests=LM_REQUESTS, slots=LM_SLOTS,
+               prompt=LM_PROMPT, max_new=LM_MAX_NEW, served_tokens=served,
+               serve_s=serve_s, tokens_per_s=served / serve_s,
+               same_tokens_served_twice=same_twice,
+               decode_steps=decode_steps, decode_dropped_pairs=decode_drops,
+               dropped_pairs_per_decode_step=decode_drops / decode_steps,
+               equal_to_generate_alone=equal,
+               first_token_argmax=first,
+               later_tokens_argmax_share=argmax / (LM_REQUESTS
+                                                   * (LM_MAX_NEW - 1)),
+               prefill_ms={LM_PROMPT: short_ms, long_len: long_ms},
+               prefill_bound={LM_PROMPT: short_bound, long_len: long_bound},
+               decode_ms=decode_ms, decode_bound=decode_bound,
+               layer0_vs_plain={"decode": decode_check,
+                                f"prefill_{long_len}": long_check},
+               profiles=profiles, max_memory_allocated=peak)
+    del model, server, warm, counted, caches, state, long_toks
+    _sync(torch, dev)
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config on the card against the CPU ----
+    host = T.init_lm(cpu_cfg, seed=0, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    toks = rng.integers(0, cpu_cfg.vocab_size, (2, LM_PROMPT))
+    lc = T.forward(host, cpu_cfg, torch.as_tensor(toks))[0].float()
+    lg = T.forward(card, cpu_cfg, torch.as_tensor(toks, device=dev)
+                   )[0].float().cpu()
+    per = (lg - lc).abs().amax(-1) / lc.abs().max()
+    share = float((per <= LM_CARD_TOL).float().mean())
+    out["card_vs_cpu"] = {"share_within": share, "tol": LM_CARD_TOL,
+                          "min_share": MOE_CARD_SHARE,
+                          "max_rel": float(per.max())}
+    check(share >= MOE_CARD_SHARE and float(per.max()) <= 1.0,
+          f"lm_moe_serve: {cpu_cfg.name} on the card against the CPU: "
+          f"{out['card_vs_cpu']}")
+    say("lm_moe_serve", **out)
+    return out
+
+
+def lm_moe_train_phase(np, torch, T, TR, OPT, DP, CK, cfg, dev,
+                       small_cfg) -> dict:
+    """phi3.5-moe (4 of 32 layers) trained on ``dev`` as ``python -m
+    repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --layers 4``
+    runs it (AdamW, remat "full", batch 8 x seq 128, lr 3e-4 warmed up
+    over 1 of 10 steps), then a checkpoint round trip of ``small_cfg``
+    (the reduced config at 8 layers: the stacked ``[L, E, D, F]``
+    leaves) on the card."""
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "parameters": cfg.param_count()}
+    _sync(torch, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = TR.init_state(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    out["init_s"] = time.perf_counter() - t0
+    schedule = OPT.cosine_schedule(LM_TRAIN_LR,
+                                   warmup=max(LM_TRAIN_STEPS // 10, 1),
+                                   total=LM_TRAIN_STEPS)
+    step_fn = TR.make_train_step(cfg, schedule=schedule)
+    pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size, LM_TRAIN_SEQ),
+                           LM_TRAIN_BATCH)
+    losses, auxes, gnorms, ms = [], [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, pipe.next_batch())
+        losses.append(float(m["loss"]))
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        auxes.append(float(m["aux"]))
+        gnorms.append(float(m["grad_norm"]))
+    check(all(np.isfinite(losses + auxes + gnorms)),
+          f"lm_moe_train: loss {losses} aux {auxes} grad norm {gnorms}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"lm_moe_train: the mean loss of the last 3 steps {losses[-3:]} is "
+          f"not below the first step's {losses[0]}")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    # computed parameters a token: all but the experts, plus k experts
+    active = cfg.active_param_count()
+    products = 8 * active * tokens
+    ops_ms = products / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    bytes_ms = LM_TRAIN_OPT_BYTES * cfg.param_count() / H100_BYTES_PER_S * 1e3
+    out.update(batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
+               losses=losses, auxes=auxes, grad_norms=gnorms, step_ms=ms,
+               step_ms_median=steady, tokens_per_s=tokens / steady * 1e3,
+               bound={"bound_ms": ops_ms + bytes_ms, "ops_ms": ops_ms,
+                      "bytes_ms": bytes_ms, "tflop": products / 1e12,
+                      "active_parameters": active})
+    held = {"state": state}
+
+    def profiled():
+        held["state"], m = step_fn(held["state"], pipe.next_batch())
+        return m
+    out["profile"] = device_profile(torch, profiled)
+    out["max_memory_allocated"] = _peak(torch, dev)
+    del state, held, step_fn
+    _sync(torch, dev)
+    torch.cuda.empty_cache()
+
+    # ---- a checkpoint round trip of the stacked layout ----
+    fixed = TR.make_train_step(small_cfg)
+    small = DP.DataPipeline(DP.SyntheticSource(small_cfg.vocab_size, 32), 4)
+    state = TR.init_state(small_cfg, seed=0, device=dev)
+    state, _ = fixed(state, small.next_batch())
+    with tempfile.TemporaryDirectory() as ck_dir:
+        cm = CK.CheckpointManager(ck_dir)
+        cm.save(int(state.step), TR.to_checkpoint(state),
+                metadata={"pipeline": small.snapshot()}, blocking=False)
+        cm.wait()
+        tree, meta = cm.restore(device=dev)
+    back = TR.from_checkpoint(small_cfg, tree, dev)
+    saved, got = TR.to_checkpoint(state), TR.to_checkpoint(back)
+    same = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(
+        CK._flatten_with_paths(saved).values(),
+        CK._flatten_with_paths(got).values()))
+    check(same and meta["pipeline"] == small.snapshot(),
+          "lm_moe_train: the restored state is not bitwise the saved one")
+    nxt = small.next_batch()
+    _, a = fixed(state, nxt)
+    _, b = fixed(back, nxt)
+    check(float(a["loss"]) == float(b["loss"]),
+          f"lm_moe_train: the step after the restore gives loss "
+          f"{float(b['loss'])}, uninterrupted {float(a['loss'])}")
+    out["checkpoint"] = dict(arch=small_cfg.name, layers=small_cfg.num_layers,
+                             bitwise=same, loss=float(a["loss"]),
+                             restored_loss=float(b["loss"]))
+    say("lm_moe_train", **out)
+    return out
+
+
+# ---- expert parallelism: one MoE layer on 4 gloo ranks sharing the card
+def moe_layer_weights(torch, cfg, experts, dev) -> dict:
+    """Layer weights of phi3.5-moe from ``MOE_SEED``: the router whole and
+    ``experts`` (a range) of ``w_in``/``w_gate``/``w_out``, each expert
+    drawn from its own generator, so a rank draws only its experts and
+    the parent the same values."""
+    from repro_torch.models.layers import mk
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    scale = 1.0 / cfg.num_experts ** 0.5  # init_moe's (mk's fan-in is E)
+    p = {"router": mk(gen, (cfg.d_model, cfg.num_experts), scale=0.02,
+                      device=dev)}
+    ws = {"w_in": [], "w_gate": [], "w_out": []}
+    for e in experts:
+        g = torch.Generator(device=dev).manual_seed(MOE_SEED + 1 + e)
+        for name, shape in (("w_in", (cfg.d_model, cfg.d_ff)),
+                            ("w_gate", (cfg.d_model, cfg.d_ff)),
+                            ("w_out", (cfg.d_ff, cfg.d_model))):
+            ws[name].append(mk(g, shape, scale=scale, device=dev))
+    p.update({k: torch.stack(v) for k, v in ws.items()})
+    return p
+
+
+def moe_tokens(torch, cfg, dev):
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED - 1)
+    return torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+
+def rank_moe_job(ctx, cfg, shape: dict, reps: int):
+    """One MoE layer of ``cfg`` (phi3.5-moe at full width) on this rank of
+    a ``shape`` mesh: its experts' slices drawn here, its block of the
+    tokens; ``apply_moe`` under the mesh, then ``reps`` timed calls with
+    the collectives timed apart.  Returns the output block, the aux, the
+    block's selections and gates, and the times and bytes."""
+    import torch
+
+    from repro_torch.dist import exchange as X
+    from repro_torch.dist.sharding import Mesh, use_mesh_rules
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import moe_a2a as A2A
+    dev = ctx.device
+    mesh = Mesh.build(shape, ctx.rank)
+    E_loc = cfg.num_experts // shape["model"]
+    m = mesh.coords["model"]
+    full = moe_layer_weights(torch, cfg, range(m * E_loc, (m + 1) * E_loc),
+                             dev)
+    fsdp = A2A.fsdp_axes(mesh, cfg, cfg.d_model)
+    p = {"router": full["router"]}
+    for name in ("w_in", "w_gate", "w_out"):  # this rank's w_spec block
+        w = full[name]
+        if fsdp:
+            n = w.shape[1] // mesh.shape["data"]
+            w = w[:, mesh.coords["data"] * n:(mesh.coords["data"] + 1) * n]
+        p[name] = w.contiguous()
+    del full
+    x = A2A.rank_block(moe_tokens(torch, cfg, dev), mesh).contiguous()
+    coll = {"ms": 0.0, "bytes": 0}
+    originals = (X.all_to_all, X.all_gather)
+
+    def timed(fn):
+        def run(t, group, *a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(t, group, *a, **kw)
+            torch.cuda.synchronize(dev)
+            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            if X.group_size(group) > 1:  # a 1-rank gather moves nothing
+                coll["bytes"] += t.numel() * t.element_size()
+            return out
+        return run
+    with use_mesh_rules(mesh):
+        y, aux = MOE.apply_moe(p, cfg, x)
+        G, Tg = MOE.groups_of(x)
+        _, gate, sel = MOE.route(p, cfg, x.reshape(G, Tg, -1))
+        X.all_to_all, X.all_gather = (timed(f) for f in originals)
+        try:
+            call_ms = []
+            for _ in range(reps):
+                coll["ms"], coll["bytes"] = 0.0, 0
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                MOE.apply_moe(p, cfg, x)
+                torch.cuda.synchronize(dev)
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            X.all_to_all, X.all_gather = originals
+    return {"rank": ctx.rank, "coords": mesh.coords, "y": y.float().cpu(),
+            "aux": float(aux),
+            "sel": sel.reshape(-1, 2).cpu(), "gate": gate.reshape(-1, 2).cpu(),
+            "call_ms": sorted(call_ms)[len(call_ms) // 2],
+            "collective_ms": coll["ms"], "collective_bytes": coll["bytes"],
+            "weight_bytes": sum(v.numel() * v.element_size()
+                                for v in p.values()),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
+def a2a_keep(np, sels: list, tp: int, E: int, cap: int):
+    """The reference's all-to-all routing replayed on the host for the
+    ranks of one model row (``sels``: each rank's [T_l, k] selections, by
+    model coordinate): a pair is kept when it fits its destination's
+    ``cap`` at the sender and its expert's ``C_loc`` at the receiver.
+    Returns each rank's keep mask and the two drop counts."""
+    E_loc = E // tp
+    C_loc = max(int(np.ceil(tp * cap / E_loc)), 8)
+    received = [[] for _ in range(tp)]  # per owner: (source, pair) in order
+    sent = [np.zeros(s.shape, bool) for s in sels]
+    for src in range(tp):
+        count = np.zeros(tp, int)
+        for i, e in enumerate(sels[src].reshape(-1).tolist()):
+            o = e // E_loc
+            if count[o] < cap:
+                sent[src].reshape(-1)[i] = True
+                received[o].append((src, i, count[o]))
+            count[o] += 1
+    keep = [np.zeros(s.shape, bool) for s in sels]
+    for o in range(tp):
+        seen = np.zeros(E_loc, int)
+        # slot order at the receiver: by source, then by the sender's slot
+        for src, i, _ in sorted(received[o], key=lambda r: (r[0], r[2])):
+            e = sels[src].reshape(-1)[i] % E_loc
+            keep[src].reshape(-1)[i] = seen[e] < C_loc
+            seen[e] += 1
+    sender = sum(int((~s).sum()) for s in sent)
+    receiver = sum(int((s & ~k).sum()) for s, k in zip(sent, keep))
+    return keep, sender, receiver
+
+
+def moe_a2a_phase(np, torch, MS, SH, MOE, A2A, cfg, dev, dist_dir) -> dict:
+    """One MoE layer of phi3.5-moe at full width, expert-parallel on 4
+    gloo ranks sharing the card: data 1 x model 4 (4 experts a rank) and
+    data 2 x model 2 (FSDP: the experts' dim 1 gathered over the data
+    axis).  Each rank's output against the plain per-token reference
+    with the keep mask the host replay of the routing gives, and the
+    global aux against the single-process value on the same tokens."""
+    torch.cuda.empty_cache()
+    full = moe_layer_weights(torch, cfg, range(cfg.num_experts), dev)
+    x = moe_tokens(torch, cfg, dev)
+    G, Tg = MOE.groups_of(x)
+    probs, _, sel1 = MOE.route(full, cfg, x.reshape(G, Tg, -1))
+    aux1 = float(MOE.aux_loss(cfg, probs, sel1))
+    out = {"tokens": [MOE_BATCH, MOE_SEQ], "single_process_aux": aux1}
+    with MS.RankPool(MOE_RANKS, backend="gloo",
+                     init_method=f"file://{dist_dir}/moe_store",
+                     timeout_s=DIST_TIMEOUT_S) as pool:
+        for shape in MOE_MESHES:
+            got = pool.run(rank_moe_job, cfg, shape, MOE_REPS)
+            tp = shape["model"]
+            rows = {}
+            for r in got:
+                rows.setdefault(r["coords"]["data"], {})[
+                    r["coords"]["model"]] = r
+            worst, sender, receiver = 0.0, 0, 0
+            for row in rows.values():
+                ranks = [row[m] for m in range(tp)]
+                T_l = ranks[0]["sel"].shape[0]
+                cap = max(int(np.ceil(cfg.capacity_factor * T_l
+                                      * cfg.experts_per_token / tp)), 8)
+                keeps, s_d, r_d = a2a_keep(
+                    np, [r["sel"].numpy() for r in ranks], tp,
+                    cfg.num_experts, cap)
+                sender += s_d
+                receiver += r_d
+                for r, keep in zip(ranks, keeps):
+                    xb = A2A.rank_block(x, SH.Mesh(shape, r["rank"]))
+                    ref = moe_plain(torch, full, xb.reshape(-1, cfg.d_model),
+                                    r["gate"].to(dev), r["sel"].to(dev),
+                                    keep)
+                    err = float((r["y"].to(dev).reshape(ref.shape) - ref)
+                                .abs().max() / ref.abs().max())
+                    worst = max(worst, err)
+            auxes = {r["aux"] for r in got}
+            aux_rel = abs(next(iter(auxes)) - aux1) / aux1
+            name = "x".join(f"{a}{n}" for a, n in shape.items())
+            res = {"mesh": shape, "experts_a_rank": cfg.num_experts // tp,
+                   "rel_err": worst, "tol": MOE_PLAIN_TOL,
+                   "sender_drops": sender, "receiver_drops": receiver,
+                   "aux": next(iter(auxes)), "aux_rel": aux_rel,
+                   "call_ms": [r["call_ms"] for r in got],
+                   "collective_ms": [r["collective_ms"] for r in got],
+                   "collective_bytes": [r["collective_bytes"] for r in got],
+                   "weight_bytes": [r["weight_bytes"] for r in got],
+                   "max_memory_allocated": [r["max_memory_allocated"]
+                                            for r in got]}
+            check(worst <= MOE_PLAIN_TOL, f"moe_a2a {name}: a rank's output "
+                                          f"is {worst} of max|y| from the "
+                                          f"plain reference")
+            check(len(auxes) == 1 and aux_rel <= MOE_AUX_TOL,
+                  f"moe_a2a {name}: aux {auxes} against {aux1}")
+            out[name] = res
+    say("moe_a2a", **out)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1856,6 +2484,7 @@ def main() -> int:
         from repro_torch.core.programs import get_program
         from repro_torch.dist import exchange as X
         from repro_torch.dist import latency as L
+        from repro_torch.dist import sharding as SH
         from repro_torch.ft import checkpoint as CK
         from repro_torch.ft import elastic as EL
         from repro_torch.kernels import _build, ops
@@ -1864,6 +2493,8 @@ def main() -> int:
         from repro_torch.launch import mesh as MS
         from repro_torch.models import attention as TA
         from repro_torch.models import layers as LY
+        from repro_torch.models import moe as MOE
+        from repro_torch.models import moe_a2a as A2A
         from repro_torch.models import transformer as T
         from repro_torch.serve import engine as SE
         from repro_torch.serve import graph as SG
@@ -2350,9 +2981,33 @@ def main() -> int:
     check(not any(K.spmv_partials.launches_by_form.values()),
           "lm_train launched an SpMV kernel")
     phase_s["lm_train"] = time.perf_counter() - t_phase
+
+    # ---- 22-24. the MoE family at full width (no SpMV kernel on it) ----
+    moe_cfg = get_config(MOE_ARCH)
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    lm_moe_serve_phase(np, torch, T, MOE, SE, dataclasses.replace(
+        moe_cfg, num_layers=MOE_SERVE_LAYERS), dev, LM_LONG,
+        moe_cfg.reduced())
+    check(not any(K.spmv_partials.launches_by_form.values()),
+          "lm_moe_serve launched an SpMV kernel")
+    phase_s["lm_moe_serve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    lm_moe_train_phase(np, torch, T, TR, OPT, DP, CK, dataclasses.replace(
+        moe_cfg, num_layers=MOE_TRAIN_LAYERS), dev, dataclasses.replace(
+        moe_cfg.reduced(), num_layers=8))
+    check(not any(K.spmv_partials.launches_by_form.values()),
+          "lm_moe_train launched an SpMV kernel")
+    phase_s["lm_moe_train"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as moe_dir:
+        moe_a2a_phase(np, torch, MS, SH, MOE, A2A, moe_cfg, dev, moe_dir)
+    check(not any(K.spmv_partials.launches_by_form.values()),
+          "moe_a2a launched an SpMV kernel")
+    phase_s["moe_a2a"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 22. kernels line, card, last line ----
+    # ---- 25. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 

@@ -217,6 +217,20 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out if out.dtype == x.dtype else out.view(x.dtype)
 
 
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in group-rank order (JAX's
+    tiled ``all_gather``); a dtype outside ``_NATIVE`` crosses as its
+    bytes (``as_wire``).  A group of one rank returns ``x`` (no copy
+    through the backend, as XLA elides a gather over an axis of 1)."""
+    if group_size(group) == 1:
+        return x
+    wire = as_wire(x)
+    parts = [torch.empty_like(wire) for _ in range(group_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat([p if p.dtype == x.dtype else p.view(x.dtype)
+                      for p in parts], dim)
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks (``x`` is left as it was)."""
     if isinstance(group, ShapeOnlyGroup):

@@ -57,8 +57,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 # The reference's activations are jnp expressions, and on bf16 every jnp op
 # rounds to bf16; these repeat them op by op, each constant rounded to
 # the input's dtype as a weak-typed jnp constant is.
+class _SiLU(torch.autograd.Function):
+    """``jax.nn.silu``: ``x * sigmoid(x)``, the sigmoid lowered as
+    ``1 / (exp(-x) + 1)``.  The backward is ``lax.logistic``'s rule,
+    ``ct * s + (ct * x) * (s * (1 - s))``: autograd through the forward's
+    ops would multiply a zero by ``exp(-x) = inf`` where ``x < -88.7``
+    (a NaN; MoE experts reach such inputs at full width)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (torch.exp(-x) + 1.0)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, s = ctx.saved_tensors
+        return ct * s + (ct * x) * (s * (1.0 - s))
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
-    return x * (1.0 / (torch.exp(-x) + 1.0))  # jax.nn.silu: x * sigmoid(x)
+    return _SiLU.apply(x)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:

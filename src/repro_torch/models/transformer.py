@@ -1,4 +1,4 @@
-"""Decoder-LM assembly, the dense stack (the counterpart of
+"""Decoder-LM assembly, the dense and MoE stacks (the counterpart of
 ``repro.models.transformer``).
 
 A :class:`ModelPlan` (static, derived from the config) describes the
@@ -27,9 +27,14 @@ trains.  The serving steps (``serve/engine.py``) run under
 ``torch.no_grad()``, so a model the trainer has unfrozen still serves
 without a graph.
 
-Only the dense family is ported (``family`` "dense" or "vlm" with no
-MoE, SSM, MLA, encoder-decoder, sliding-window or MTP flag);
-:func:`build_plan` raises ``NotImplementedError`` for the others, naming
+The dense and MoE families are ported (an MoE model is an optional
+stack of ``first_k_dense`` dense layers, then a stack of MoE layers whose
+block runs ``models/moe.py``; the router's aux loss is summed over the
+layers into ``forward``'s and ``lm_loss``'s ``aux``).  :func:`param_axes`
+gives the reference's logical-axes tree (``split_params(init_lm(...))[1]``),
+which ``dist/sharding.py::ShardingRules`` resolves and the optimizers'
+``state_axes`` map.  :func:`build_plan` raises ``NotImplementedError`` for
+SSM, hybrid, sliding-window, MLA, MTP and encoder-decoder configs, naming
 the ROADMAP slice that ports them.
 """
 from __future__ import annotations
@@ -48,6 +53,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, chunked_softmax_xent,
                                        init_embedding, init_mlp, init_norm,
                                        mk, rms_norm)
@@ -60,7 +66,7 @@ MIN_SCAN = 8
 # ======================================================================
 @dataclass(frozen=True)
 class StackPlan:
-    kind: str  # dense
+    kind: str  # dense | moe
     n: int
     scan: bool  # parameters and caches stacked along a leading layer dim
     d_ff: int
@@ -78,8 +84,6 @@ def _unported(cfg: ModelConfig) -> Optional[str]:
         return "encoder-decoder waits for item 14 slice 5"
     if cfg.use_mla or cfg.mtp_depth:
         return "MLA and MTP wait for item 14 slice 4"
-    if cfg.is_moe:
-        return "MoE waits for item 14 slice 2"
     if cfg.family in ("ssm", "hybrid") or cfg.attn_type == "swa":
         return "SSM, hybrid and sliding-window attention wait for item 14 slice 3"
     return None
@@ -90,6 +94,14 @@ def build_plan(cfg: ModelConfig) -> ModelPlan:
     if missing:
         raise NotImplementedError(f"{cfg.name}: {missing} (ROADMAP.md)")
     L = cfg.num_layers
+    if cfg.is_moe:
+        stacks = []
+        if cfg.first_k_dense:
+            stacks.append(StackPlan("dense", cfg.first_k_dense, False,
+                                    cfg.dense_d_ff or cfg.d_ff))
+        m = L - cfg.first_k_dense
+        stacks.append(StackPlan("moe", m, m >= MIN_SCAN, cfg.d_ff))
+        return ModelPlan(tuple(stacks))
     return ModelPlan((StackPlan("dense", L, L >= MIN_SCAN, cfg.d_ff),))
 
 
@@ -132,16 +144,23 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One dense decoder layer: pre-norm attention, then the MLP, each
-    added to the residual stream."""
+    """One decoder layer: pre-norm attention, then the MLP (a dense layer)
+    or the experts (an MoE layer: ``moe`` instead of ``mlp``), each added
+    to the residual stream."""
 
     def __init__(self, norm1: torch.Tensor, attn: dict, norm2: torch.Tensor,
-                 mlp: dict):
+                 mlp: Optional[dict] = None, moe: Optional[dict] = None):
         super().__init__()
         self.norm1 = _frozen(norm1)
         self.attn = nn.ParameterDict({k: _frozen(v) for k, v in attn.items()})
         self.norm2 = _frozen(norm2)
-        self.mlp = nn.ParameterDict({k: _frozen(v) for k, v in mlp.items()})
+        self.mlp = self.moe = None
+        if mlp is not None:
+            self.mlp = nn.ParameterDict(
+                {k: _frozen(v) for k, v in mlp.items()})
+        if moe is not None:
+            self.moe = nn.ParameterDict(
+                {k: _frozen(v) for k, v in moe.items()})
 
 
 class LayerParams(NamedTuple):
@@ -150,7 +169,8 @@ class LayerParams(NamedTuple):
     norm1: torch.Tensor
     attn: dict
     norm2: torch.Tensor
-    mlp: dict
+    mlp: Optional[dict]
+    moe: Optional[dict]
 
 
 class StackedBlocks(Block):
@@ -166,11 +186,16 @@ class StackedBlocks(Block):
 
     def layers(self) -> list[LayerParams]:
         n1, n2 = self.norm1.unbind(0), self.norm2.unbind(0)
-        attn = {k: v.unbind(0) for k, v in self.attn.items()}
-        mlp = {k: v.unbind(0) for k, v in self.mlp.items()}
-        return [LayerParams(n1[i], {k: v[i] for k, v in attn.items()}, n2[i],
-                            {k: v[i] for k, v in mlp.items()})
-                for i in range(len(self))]
+
+        def split(d):
+            return None if d is None else {k: v.unbind(0)
+                                           for k, v in d.items()}
+
+        def pick(d, i):
+            return None if d is None else {k: v[i] for k, v in d.items()}
+        attn, mlp, moe = split(self.attn), split(self.mlp), split(self.moe)
+        return [LayerParams(n1[i], pick(attn, i), n2[i], pick(mlp, i),
+                            pick(moe, i)) for i in range(len(self))]
 
     def __iter__(self):
         return iter(self.layers())
@@ -181,8 +206,9 @@ class StackedBlocks(Block):
 
 def _stacked(layers, n: int) -> StackedBlocks:
     """``n`` per-layer parameter dicts (``norm1``, ``attn``, ``norm2``,
-    ``mlp``), taken one at a time from the iterable ``layers``, copied
-    into ``[n, ...]`` leaves (no second copy of the stack is ever live)."""
+    ``mlp`` or ``moe``), taken one at a time from the iterable ``layers``,
+    copied into ``[n, ...]`` leaves (no second copy of the stack is ever
+    live)."""
     stacked = None
     for i, layer in enumerate(layers):
         if stacked is None:
@@ -219,13 +245,17 @@ class LM(nn.Module):
                        compute_logits)
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, d_ff: int,
-                device=None) -> dict:
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                d_ff: int, device=None) -> dict:
     d = cfg.d_model
-    return {"norm1": init_norm(d, device),
-            "attn": attn_mod.init_attention(gen, cfg, device),
-            "norm2": init_norm(d, device),
-            "mlp": init_mlp(gen, d, d_ff, cfg.gated_mlp, device)}
+    layer = {"norm1": init_norm(d, device),
+             "attn": attn_mod.init_attention(gen, cfg, device),
+             "norm2": init_norm(d, device)}
+    if kind == "moe":
+        layer["moe"] = moe_mod.init_moe(gen, cfg, device)
+    else:
+        layer["mlp"] = init_mlp(gen, d, d_ff, cfg.gated_mlp, device)
+    return layer
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
@@ -241,7 +271,8 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dev)
     stacks = []
     for sp in plan.stacks:
-        layers = (_init_layer(gen, cfg, sp.d_ff, dev) for _ in range(sp.n))
+        layers = (_init_layer(gen, cfg, sp.kind, sp.d_ff, dev)
+                  for _ in range(sp.n))
         stacks.append(_stacked(layers, sp.n) if sp.scan
                       else [Block(**layer) for layer in layers])
     head = None
@@ -255,7 +286,9 @@ def _tensor(a) -> torch.Tensor:
     ``torch.from_numpy`` refuses) crosses as its uint16 bits."""
     if torch.is_tensor(a):
         return a
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)
+    if not a.flags.c_contiguous:  # (ascontiguousarray would make 0-d 1-d)
+        a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # torch.from_numpy shares the buffer
         a = a.copy()
     if a.dtype.kind == "V" or str(a.dtype) == "bfloat16":
@@ -276,10 +309,9 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
         return _tensor(a).to(dev)
 
     def layer(d: dict) -> dict:
-        return {"norm1": t(d["norm1"]),
-                "attn": {k: t(v) for k, v in d["attn"].items()},
-                "norm2": t(d["norm2"]),
-                "mlp": {k: t(v) for k, v in d["mlp"].items()}}
+        return {key: ({k: t(v) for k, v in val.items()}
+                      if isinstance(val, dict) else t(val))
+                for key, val in d.items()}
 
     stacks = []
     for sp, stack in zip(build_plan(cfg).stacks, tree["stacks"]):
@@ -352,6 +384,54 @@ def params_to_numpy(model: LM) -> dict:
     return _map_tree(_numpy, to_tree(param_dict(model)))
 
 
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """The logical axes of one layer's leaves, as the reference's ``mk``
+    calls name them."""
+    attn = {"w_q": ("fsdp", "q_proj"), "w_k": ("fsdp", "kv_proj"),
+            "w_v": ("fsdp", "kv_proj"), "w_o": ("q_proj", "fsdp")}
+    if cfg.qk_norm:
+        attn.update(q_norm=(None,), k_norm=(None,))
+    block = {"norm1": (None,), "attn": attn, "norm2": (None,)}
+    if kind == "moe":
+        expert = ("experts", "fsdp", None)
+        moe = {"router": (None, None), "w_in": expert, "w_gate": expert,
+               "w_out": expert}
+        if cfg.num_shared_experts:
+            moe.update(shared_w_in=("fsdp", "mlp"),
+                       shared_w_gate=("fsdp", "mlp"),
+                       shared_w_out=("mlp", "fsdp"))
+        block["moe"] = moe
+    else:
+        mlp = {"w_in": ("fsdp", "mlp"), "w_out": ("mlp", "fsdp")}
+        if cfg.gated_mlp:
+            mlp["w_gate"] = ("fsdp", "mlp")
+        block["mlp"] = mlp
+    return block
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The reference's logical-axes tree of the parameters
+    (``split_params(init_lm(key, cfg))[1]``): nested dicts, ``"stacks"``
+    and a tuple stack's layers as tuples, each leaf a tuple of logical
+    axis names (``None``: replicated); a scan stack's leaves lead with
+    ``None`` (the layer dim)."""
+    def stacked(node):
+        if isinstance(node, dict):
+            return {k: stacked(v) for k, v in node.items()}
+        return (None,) + node
+
+    stacks = []
+    for sp in build_plan(cfg).stacks:
+        block = _block_axes(cfg, sp.kind)
+        stacks.append(stacked(block) if sp.scan
+                      else tuple(block for _ in range(sp.n)))
+    tree = {"embed": ("vocab", "fsdp"), "final_norm": (None,),
+            "stacks": tuple(stacks)}
+    if not cfg.tie_embeddings:
+        tree["head"] = ("fsdp", "vocab")
+    return tree
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -364,15 +444,22 @@ def _map_tree(fn, tree):
 # Apply
 # ======================================================================
 def apply_block(p, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, mode: str,
-                cache: LayerCache) -> tuple[torch.Tensor, LayerCache]:
-    """One layer; ``p`` is a :class:`Block` or a :class:`LayerParams`."""
+                positions: torch.Tensor, mode: str, cache: LayerCache
+                ) -> tuple[torch.Tensor, LayerCache, torch.Tensor]:
+    """One layer; ``p`` is a :class:`Block` or a :class:`LayerParams`.
+    Returns (x, new_cache, aux_loss): the router's loss of an MoE layer,
+    0 for a dense one."""
     h = rms_norm(x, p.norm1, cfg.norm_eps)
     a_out, new_kv = attn_mod.attention_layer(p.attn, cfg, h, positions,
                                              cache=cache.kv, mode=mode)
     x = x + a_out
-    y = apply_mlp(p.mlp, rms_norm(x, p.norm2, cfg.norm_eps), cfg.act)
-    return x + y, LayerCache(new_kv, cache.ssm)
+    h2 = rms_norm(x, p.norm2, cfg.norm_eps)
+    if p.moe is not None:
+        y, aux = moe_mod.apply_moe(p.moe, cfg, h2)
+    else:
+        y = apply_mlp(p.mlp, h2, cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, LayerCache(new_kv, cache.ssm), aux
 
 
 def _save_mm(ctx, op, *args, **kwargs):
@@ -399,35 +486,41 @@ def _remat_wrap(fn, cfg: ModelConfig, mode: str):
 
 def apply_stacks(params: LM, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, mode: str, caches):
-    """Run all stacks. caches: the tree from init_cache (or None)."""
+    """Run all stacks. caches: the tree from init_cache (or None).
+    Returns (x, new_caches, aux_loss summed over the layers)."""
     plan = build_plan(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for si, (sp, blocks) in enumerate(zip(plan.stacks, params.stacks)):
         cache_s = caches[si] if caches is not None else None
         if cache_s is None:
             def layer_fn(xc, pl):
-                return apply_block(pl, cfg, xc, positions, mode,
-                                   LayerCache(None, None))[0]
+                xo, _, aux = apply_block(pl, cfg, xc, positions, mode,
+                                         LayerCache(None, None))
+                return xo, aux
             layer_fn = _remat_wrap(layer_fn, cfg, mode)
             for blk in blocks:
-                x = layer_fn(x, blk)
+                x, aux = layer_fn(x, blk)
+                aux_total = aux_total + aux
             new_caches.append(None)
         elif sp.scan:  # layer li's cache is row li of the stacked tensors
             k, v, pos = cache_s.kv
             new_pos = []
             for li, blk in enumerate(blocks):
                 cl = LayerCache(attn_mod.KVCache(k[li], v[li], pos[li]), None)
-                x, nc = apply_block(blk, cfg, x, positions, mode, cl)
+                x, nc, aux = apply_block(blk, cfg, x, positions, mode, cl)
+                aux_total = aux_total + aux
                 new_pos.append(nc.kv.pos)  # K/V were written in place
             new_caches.append(LayerCache(
                 attn_mod.KVCache(k, v, torch.stack(new_pos)), cache_s.ssm))
         else:
             ncs = []
             for blk, cl in zip(blocks, cache_s):
-                x, nc = apply_block(blk, cfg, x, positions, mode, cl)
+                x, nc, aux = apply_block(blk, cfg, x, positions, mode, cl)
+                aux_total = aux_total + aux
                 ncs.append(nc)
             new_caches.append(tuple(ncs))
-    return x, tuple(new_caches)
+    return x, tuple(new_caches), aux_total
 
 
 def embed_tokens(params: LM, cfg: ModelConfig,
@@ -445,13 +538,14 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, mode: str = "train",
             caches=None, compute_logits: bool = True):
     """tokens [B,S] -> (logits [B,S,V], new_caches, aux_loss, hidden);
-    ``aux_loss`` is 0 (the dense stack has no router loss)."""
+    ``aux_loss`` is the MoE layers' router loss summed (0 for a dense
+    model)."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = embed_tokens(params, cfg, tokens)
-    x, new_caches = apply_stacks(params, cfg, x, positions, mode, caches)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, new_caches, aux = apply_stacks(params, cfg, x, positions, mode,
+                                      caches)
     if not compute_logits:
         return None, new_caches, aux, x
     return lm_logits(params, cfg, x), new_caches, aux, x
@@ -464,8 +558,9 @@ def lm_loss(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """``(total, {"nll", "aux", "loss"})``: the chunked softmax
     cross-entropy of the final norm's output against ``labels`` plus the
-    aux loss (0 for the dense stack).  deepseek's MTP head waits for item
-    14 slice 4 (``build_plan`` raises, naming it)."""
+    aux loss (the MoE layers' router loss; 0 for a dense model).
+    deepseek's MTP head waits for item 14 slice 4 (``build_plan`` raises,
+    naming it)."""
     build_plan(cfg)
     _, _, aux, hidden = forward(params, cfg, tokens, mode="train",
                                 compute_logits=False)

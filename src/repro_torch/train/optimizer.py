@@ -1,9 +1,10 @@
 """Optimizers: AdamW (fp32 moments) and Adafactor (factored second moment)
 (the counterpart of ``repro.train.optimizer``).
 
-Both keep the reference's functional pair:
+Both keep the reference's functional triple:
     init(params) -> state
     update(grads, state, params, lr) -> (params, state)
+    state_axes(param_axes) -> logical-axes tree for the state (sharding)
 
 ``params``, ``grads`` and every moment tree are dicts name -> tensor in
 the reference's leaf layout (``transformer.param_dict``: a scan stack's
@@ -21,9 +22,9 @@ the reference's arithmetic), so only one piece's fp32 temporaries are
 live at a time.  ``update`` returns the same ``params`` and a state
 holding the same moment tensors with the step advanced.
 
-The reference's ``state_axes`` (logical sharding axes of the state) has
-no counterpart on one card; it returns with ``ShardingRules`` (ROADMAP
-item 14 slice 2).
+``state_axes`` maps the reference's logical-axes tree of the parameters
+(``transformer.param_axes``) to the state's, as the reference's does;
+``dist/sharding.py::ShardingRules`` resolves it on a mesh.
 """
 from __future__ import annotations
 
@@ -35,6 +36,21 @@ import torch
 from repro_torch.models.layers import f32_recip
 
 PIECE = 1 << 26  # elements of a leaf updated at once (256 MiB in fp32)
+
+
+def is_axes(x) -> bool:
+    """Leaf predicate for logical-axes trees (tuples of str|None)."""
+    return isinstance(x, tuple) and all(e is None or isinstance(e, str)
+                                        for e in x)
+
+
+def _map_axes(fn, tree):
+    """``fn`` on every axes leaf of a tree of dicts and tuples."""
+    if is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_axes(fn, v) for k, v in tree.items()}
+    return tuple(_map_axes(fn, v) for v in tree)
 
 
 def _pieces(t: torch.Tensor):
@@ -136,6 +152,9 @@ class AdamW:
                 pp.copy_(p32 - lr * u)
         return params, AdamWState(step, state.m, state.v)
 
+    def state_axes(self, param_axes) -> AdamWState:
+        return AdamWState((), param_axes, param_axes)
+
 
 # ======================================================================
 # Adafactor (Shazeer & Stern 2018), beta1=0 variant
@@ -203,6 +222,20 @@ class Adafactor:
                 u = u + self.wd * p32
             p.copy_(p32 - lr * u)
         return params, AdafactorState(step, state.vr, state.vc, state.v)
+
+    def state_axes(self, param_axes) -> AdafactorState:
+        def vr_ax(ax):
+            return tuple(ax[:-1]) if len(ax) >= 2 else (None,)
+
+        def vc_ax(ax):
+            return tuple(ax[:-2]) + tuple(ax[-1:]) if len(ax) >= 2 else (None,)
+
+        def v_ax(ax):
+            return (None,) if len(ax) >= 2 else tuple(ax)
+
+        return AdafactorState((), _map_axes(vr_ax, param_axes),
+                              _map_axes(vc_ax, param_axes),
+                              _map_axes(v_ax, param_axes))
 
 
 def get_optimizer(name: str, **kw):

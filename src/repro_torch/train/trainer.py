@@ -18,8 +18,9 @@ A :class:`TrainState` holds the model (an ``LM`` module: its
 (moments keyed as ``param_dict``) and the step.  :func:`to_checkpoint`
 and :func:`from_checkpoint` map it to and from the reference's
 ``TrainState`` tree, which ``ft/checkpoint.py`` writes in the JAX
-package's format.  The reference's logical axes (the second value of its
-``init_state``) have no counterpart on one card.
+package's format.  The reference's ``init_state`` also returns the
+logical axes of the state; here :func:`state_axes` gives them, and
+``init_state`` returns the state alone.
 """
 from __future__ import annotations
 
@@ -62,6 +63,16 @@ def init_state(cfg: ModelConfig, seed: int = 0,
     opt_state = opt.init(transformer_mod.param_dict(model))
     return TrainState(model, opt_state, torch.zeros(
         (), dtype=torch.int32, device=model.embed.device))
+
+
+def state_axes(cfg: ModelConfig) -> TrainState:
+    """The logical-axes trees of a :class:`TrainState` of ``cfg`` (the
+    second value of the reference's ``init_state``): the parameters'
+    (``transformer.param_axes``), the optimizer state's, ``()`` for the
+    step."""
+    axes = transformer_mod.param_axes(cfg)
+    opt = opt_mod.get_optimizer(cfg.optimizer)
+    return TrainState(axes, opt.state_axes(axes), ())
 
 
 def _on(batch: dict, device: torch.device) -> dict:

@@ -690,3 +690,69 @@ def test_lm_train_steps_on_card_match_cpu(cuda):
     for k, p in hp.items():
         assert (cp[k].detach().cpu().float() - p.detach().float()
                 ).abs().max() <= 4 * 3e-4 * len(batches) + ulp, k
+
+
+# ---------------------------------------------------------------- MoE
+def _share_within(a, b, tol) -> float:
+    """The share of rows (last dim reduced) of ``b`` within ``tol`` of
+    max|a| of ``a`` (a routing flip moves a whole row)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    per = (a - b).abs().amax(-1) / a.abs().max()
+    return float((per <= tol).float().mean())
+
+
+@pytest.mark.parametrize("shape", [(4, 32), (16, 1), (2, 1)])
+def test_moe_layer_on_card_matches_cpu(cuda, shape):
+    """The reduced phi3.5-moe layer 0 (4 experts top-2) in prefill (4
+    groups of 32), decode of 16 rows and of 2 rows (C = 1: drops): the
+    card against the CPU on the same weights, >= 90% of the rows within
+    chip_smoke.py's ``LM_CARD_TOL`` of max|out| (the rest routing flips
+    at bf16 near ties of the router logits), the aux within 1e-3."""
+    from repro_torch.models import moe
+    cfg, host, card = _lm(cuda, "phi3.5-moe-42b-a6.6b")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        shape + (cfg.d_model,))).to(torch.bfloat16)
+    yh, ah = moe.apply_moe(dict(host.stacks[0][0].moe), cfg, x)
+    yc, ac = moe.apply_moe(dict(card.stacks[0][0].moe), cfg, x.to(cuda))
+    assert yc.device.type == "cuda" and yc.dtype == torch.bfloat16
+    assert _share_within(yh, yc, 5.0e-2) >= 0.9
+    assert abs(float(ah) - float(ac)) <= 1e-3 * float(ah)
+
+
+def test_moe_a2a_one_nccl_rank(cuda, tmp_path):
+    """``apply_moe_a2a`` on a 1 x 1 mesh whose groups are one NCCL rank
+    (both all-to-alls cross NCCL, bf16 as its bytes; the gather over the
+    1-rank data axis returns its input)
+    against the same call over a gloo group on the CPU: >= 90% of the
+    rows within 5e-2 of max|out|."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Mesh, use_mesh_rules
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import moe, moe_a2a
+    from repro_torch.models import transformer as T
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    p = dict(T.init_lm(cfg, 0, "cpu").stacks[0][0].moe)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 16, cfg.d_model))).to(torch.bfloat16)
+    _, gate, sel = moe.route(p, cfg, x)
+    group, dev = MS.make_worker_group(
+        0, 1, backend="nccl", init_method=f"file://{tmp_path / 'store'}",
+        timeout_s=120)
+    try:
+        host = dist.new_group([0], backend="gloo")
+        out = {}
+        for g, d in ((group, dev), (host, torch.device("cpu"))):
+            mesh = Mesh({"data": 1, "model": 1}, 0, {
+                ("data",): g, ("model",): g, ("data", "model"): g})
+            with use_mesh_rules(mesh):
+                assert moe_a2a.fsdp_axes(mesh, cfg, cfg.d_model) == ("data",)
+                out[d.type] = moe_a2a.apply_moe_a2a(
+                    {k: v.to(d) for k, v in p.items()}, cfg, x.to(d),
+                    gate.reshape(4, 16, 2).to(d),
+                    sel.reshape(4, 16, 2).to(d))
+    finally:
+        dist.destroy_process_group()
+    assert out["cuda"].device.type == "cuda"
+    assert _share_within(out["cpu"], out["cuda"], 5.0e-2) >= 0.9

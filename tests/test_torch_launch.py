@@ -248,6 +248,11 @@ def test_port_runs_without_jax_or_repro(tmp_path):
         "import repro_torch.train.trainer, repro_torch.train.optimizer\n"
         "repro_torch.launch.train.main(['--arch', 'qwen3-4b', '--reduced', "
         "'--steps', '2', '--device', 'cpu'])\n"
+        "import repro_torch.models.moe, repro_torch.models.moe_a2a\n"
+        "repro_torch.launch.train.main(['--arch', 'phi3.5-moe-42b-a6.6b', "
+        "'--reduced', '--steps', '2', '--device', 'cpu'])\n"
+        "repro_torch.launch.serve.main(['--arch', 'phi3.5-moe-42b-a6.6b', "
+        "'--device', 'cpu', '--requests', '3'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -279,7 +284,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert PORT / "models" / "transformer.py" in files
     assert PORT / "launch" / "serve.py" in files
     for new in ("launch/train.py", "train/trainer.py", "train/optimizer.py",
-                "data/pipeline.py"):
+                "data/pipeline.py", "models/moe.py", "models/moe_a2a.py",
+                "dist/sharding.py"):
         assert PORT / new in files
     for f in files:
         roots = set(_imported_roots(f))
