@@ -160,12 +160,44 @@ non-zero:
      data 2 x model 2 (the FSDP gather): each rank's output block held to
      the plain per-token reference with the keep mask of the host's replay
      of the routing (sender and receiver drops), the global aux to one
-     process's; the collectives' ms and bytes a rank;
- 25. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+     process's; the backward of ``sum(y * ct) + aux`` through the
+     all-to-alls and the gather (each rank its share), every gradient held
+     to the plain reference's (one process, the same picks and keep mask);
+     the collectives' ms and bytes a rank, the backward's ms;
+ 25. ``lm_ssm_serve``, mamba2-780m (48 SSD layers, d 1536) and hymba-1.5b
+     (32 hybrid layers, d 1600: attention 25/5 x 64 beside 50 SSD heads,
+     a 1,024-token window but in layers 0, 16 and 31) at full width and
+     depth, served as ``python -m repro_torch.launch.serve --arch <arch>
+     --no-reduced`` serves them (6 requests of 16 tokens, 2 slots, 12 new),
+     in bf16 and timed, then the same weights in fp32: each request against
+     ``generate`` of its prompt alone (equal, or the first difference a
+     near tie) and the recurrent decode's logits along it against a full
+     forward's (the chunked scan), within 1e-3 of max|logit| in fp32 (in
+     bf16 the two round in other places and drift apart with depth, in the
+     reference too, so bf16 is reported: ROADMAP.md §3); prefill ms at
+     16 and 4,096 tokens and decode ms a step beside their bounds, tokens
+     a second, peak memory, busy share; the 4,096-token
+     prefill (hymba: 29 blocked windows, 3 flash layers, rings from then
+     on) with layer 0's chunked scan held to the fp32 sequential recurrence
+     on its inputs, then 8 decode steps from its cache, their logits
+     against a full forward's (fp32 held, bf16 reported); the reduced
+     configs on the card against the CPU;
+ 26. ``lm_ssm_train``: both at full width and depth trained as ``python -m
+     repro_torch.launch.train --arch <arch>`` trains them (10 steps):
+     every loss and grad norm finite, the mean of the last 3 below the
+     first; ms a step, tokens a second, a profiled step, peak; 2 steps at
+     1 x 4,096 (hymba: the blocked window's backward past the window,
+     counted); a checkpoint round trip of the reduced config;
+ 27. ``ssd_seq_parallel``: one mamba2 layer's SSD at full width on 4 gloo
+     ranks sharing the card, 1 x 4,096 tokens (1,024 a rank, 8 chunks):
+     each rank's output and the input gradients against one process's
+     ``ssd_chunked`` over the whole sequence; the call's ms and the bytes
+     a rank gathers;
+ 28. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
-20, 21, 22) and read after it.  The LM phases (20-24) launch no SpMV
+20-27) and read after it.  The LM phases (20-27) launch no SpMV
 kernel (checked): they reach no ``pl.pallas_call`` in the reference.  The
 multi-rank phases launch no kernel (the engine tick has none): their
 labels are held to phase 4's, which equal the kernel-backed BSP's.  The ranks are one pool of spawned processes for all
@@ -178,6 +210,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -270,6 +303,37 @@ MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 16, 4
 MOE_RANKS, MOE_BATCH, MOE_SEQ, MOE_REPS, MOE_SEED = 4, 4, 512, 5, 20
 MOE_MESHES = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
 MOE_PLAIN_TOL, MOE_AUX_TOL, MOE_CARD_SHARE = 2.0e-2, 1e-4, 0.75
+# the backward of the expert-parallel layer against the plain reference's,
+# of each max|grad| (this phase on the CPU at d 512, d_ff 1024, 16 experts:
+# at most 1.3e-2, w_gate's)
+MOE_GRAD_TOL = 4.0e-2
+# the SSM and hybrid phases: mamba2-780m and hymba-1.5b at full width and
+# depth (nothing cut), served as launch/serve's defaults then a prefill of
+# LM_LONG tokens (hymba: past its 1,024-token window) and SSM_DECODE steps
+# from its cache; trained as launch/train's defaults, then 2 steps at 1 x
+# LM_LONG.  SSM_SCAN_TOL holds the chunked scan (bf16 x, B, C as the model
+# forms them; its output bf16) to the fp32 sequential recurrence on the same
+# inputs, of max|y| (tools/ssm_numerics.py: ssd_seq_inputs' draws at both
+# archs' widths, 512 tokens, seeds 0-2 on the CPU, at most 4.7e-3);
+# SSM_HYBRID_LAYERS is the reduced hymba's depth on the card against the
+# CPU (layer 1 windowed).
+# One mamba2 layer's SSD runs sequence-parallel on SSM_SEQ_RANKS gloo ranks
+# sharing the card, 1 x SSM_SEQ_LEN tokens, held to one process's
+# ssd_chunked within SSM_SEQ_TOL of max|y| and of each max|grad| (this
+# phase on the CPU: y bitwise, the bf16 gradients within 2.3e-3; the last
+# bit of a bf16 element near max|grad| is 3.9e-3-7.8e-3 of it)
+SSM_ARCHS, SSM_DECODE, SSM_HYBRID_LAYERS = ("mamba2-780m", "hymba-1.5b"), 8, 4
+SSM_SCAN_TOL, SSM_SEQ_TOL = 1.9e-2, 1.6e-2
+# SSM_DECODE_TOL holds the fp32 recurrent decode's logits (teacher-forced
+# along a served sequence) to one fp32 full forward's, the chunked scan, of
+# max|logit| (tools/ssm_numerics.py: the reduced configs at full depth on
+# the CPU, 48 and 32 layers, 2.6e-5 and 3.6e-6).  In bf16 the two paths
+# round in other places and drift apart with depth: the reference's own
+# decode is 0.265 (mamba2) and 0.092 (hymba) of max|logit| from its
+# forward there, the port's 0.277 and 0.122, so the bf16 run is reported
+# and the fp32 run is held
+SSM_DECODE_TOL = 1.0e-3
+SSM_SEQ_RANKS, SSM_SEQ_LEN, SSM_SEQ_REPS, SSM_SEQ_SEED = 4, 4096, 5, 40
 
 
 class SmokeFailure(Exception):
@@ -2242,6 +2306,18 @@ def lm_moe_train_phase(np, torch, T, TR, OPT, DP, CK, cfg, dev,
     torch.cuda.empty_cache()
 
     # ---- a checkpoint round trip of the stacked layout ----
+    out["checkpoint"] = checkpoint_round_trip(torch, TR, DP, CK, small_cfg,
+                                              dev, "lm_moe_train")
+    say("lm_moe_train", **out)
+    return out
+
+
+def checkpoint_round_trip(torch, TR, DP, CK, small_cfg, dev,
+                          where: str) -> dict:
+    """``small_cfg`` trained one step on the card, its state saved by
+    ``CheckpointManager`` (on a background thread) and restored: bitwise
+    the saved state, and the next step's loss equal to the uninterrupted
+    run's."""
     fixed = TR.make_train_step(small_cfg)
     small = DP.DataPipeline(DP.SyntheticSource(small_cfg.vocab_size, 32), 4)
     state = TR.init_state(small_cfg, seed=0, device=dev)
@@ -2254,22 +2330,21 @@ def lm_moe_train_phase(np, torch, T, TR, OPT, DP, CK, cfg, dev,
         tree, meta = cm.restore(device=dev)
     back = TR.from_checkpoint(small_cfg, tree, dev)
     saved, got = TR.to_checkpoint(state), TR.to_checkpoint(back)
-    same = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(
-        CK._flatten_with_paths(saved).values(),
-        CK._flatten_with_paths(got).values()))
+    same = all((a is None and b is None) or (torch.equal(a, b)
+                                             and a.dtype == b.dtype)
+               for a, b in zip(CK._flatten_with_paths(saved).values(),
+                               CK._flatten_with_paths(got).values()))
     check(same and meta["pipeline"] == small.snapshot(),
-          "lm_moe_train: the restored state is not bitwise the saved one")
+          f"{where}: the restored state is not bitwise the saved one")
     nxt = small.next_batch()
     _, a = fixed(state, nxt)
     _, b = fixed(back, nxt)
     check(float(a["loss"]) == float(b["loss"]),
-          f"lm_moe_train: the step after the restore gives loss "
+          f"{where}: the step after the restore gives loss "
           f"{float(b['loss'])}, uninterrupted {float(a['loss'])}")
-    out["checkpoint"] = dict(arch=small_cfg.name, layers=small_cfg.num_layers,
-                             bitwise=same, loss=float(a["loss"]),
-                             restored_loss=float(b["loss"]))
-    say("lm_moe_train", **out)
-    return out
+    return dict(arch=small_cfg.name, layers=small_cfg.num_layers,
+                bitwise=same, loss=float(a["loss"]),
+                restored_loss=float(b["loss"]))
 
 
 # ---- expert parallelism: one MoE layer on 4 gloo ranks sharing the card
@@ -2300,12 +2375,22 @@ def moe_tokens(torch, cfg, dev):
                        device=dev).to(torch.bfloat16)
 
 
+def moe_cotangent(torch, cfg, dev):
+    """The output's cotangent of the backward check (fp32)."""
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED - 2)
+    return torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=gen,
+                       device=dev)
+
+
 def rank_moe_job(ctx, cfg, shape: dict, reps: int):
     """One MoE layer of ``cfg`` (phi3.5-moe at full width) on this rank of
     a ``shape`` mesh: its experts' slices drawn here, its block of the
-    tokens; ``apply_moe`` under the mesh, then ``reps`` timed calls with
-    the collectives timed apart.  Returns the output block, the aux, the
-    block's selections and gates, and the times and bytes."""
+    tokens; ``apply_moe`` under the mesh and the backward of this rank's
+    share of ``sum(y * ct) + aux`` (through the all-to-alls and the FSDP
+    gather), then ``reps`` timed forward calls with the collectives timed
+    apart.  Returns the output block, the aux, the block's selections and
+    gates, the gradients of its weight slices and of its tokens, and the
+    times and bytes."""
     import torch
 
     from repro_torch.dist import exchange as X
@@ -2327,16 +2412,19 @@ def rank_moe_job(ctx, cfg, shape: dict, reps: int):
             w = w[:, mesh.coords["data"] * n:(mesh.coords["data"] + 1) * n]
         p[name] = w.contiguous()
     del full
-    x = A2A.rank_block(moe_tokens(torch, cfg, dev), mesh).contiguous()
+    p = {k: v.requires_grad_() for k, v in p.items()}
+    x = A2A.rank_block(moe_tokens(torch, cfg, dev), mesh).clone()
+    x.requires_grad_()
+    ct = A2A.rank_block(moe_cotangent(torch, cfg, dev), mesh)
     coll = {"ms": 0.0, "bytes": 0}
     originals = (X.all_to_all, X.all_gather)
 
     def timed(fn):
         def run(t, group, *a, **kw):
-            torch.cuda.synchronize(dev)
+            _sync(torch, dev)
             t0 = time.perf_counter()
             out = fn(t, group, *a, **kw)
-            torch.cuda.synchronize(dev)
+            _sync(torch, dev)
             coll["ms"] += (time.perf_counter() - t0) * 1e3
             if X.group_size(group) > 1:  # a 1-rank gather moves nothing
                 coll["bytes"] += t.numel() * t.element_size()
@@ -2344,28 +2432,86 @@ def rank_moe_job(ctx, cfg, shape: dict, reps: int):
         return run
     with use_mesh_rules(mesh):
         y, aux = MOE.apply_moe(p, cfg, x)
+        share = math.prod(shape.values())
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        (torch.sum(y.float() * ct) + aux / share).backward()
+        _sync(torch, dev)
+        backward_ms = (time.perf_counter() - t0) * 1e3
         G, Tg = MOE.groups_of(x)
-        _, gate, sel = MOE.route(p, cfg, x.reshape(G, Tg, -1))
+        with torch.no_grad():
+            _, gate, sel = MOE.route(p, cfg, x.reshape(G, Tg, -1))
         X.all_to_all, X.all_gather = (timed(f) for f in originals)
         try:
             call_ms = []
             for _ in range(reps):
                 coll["ms"], coll["bytes"] = 0.0, 0
-                torch.cuda.synchronize(dev)
+                _sync(torch, dev)
                 t0 = time.perf_counter()
-                MOE.apply_moe(p, cfg, x)
-                torch.cuda.synchronize(dev)
+                with torch.no_grad():
+                    MOE.apply_moe(p, cfg, x)
+                _sync(torch, dev)
                 call_ms.append((time.perf_counter() - t0) * 1e3)
         finally:
             X.all_to_all, X.all_gather = originals
-    return {"rank": ctx.rank, "coords": mesh.coords, "y": y.float().cpu(),
-            "aux": float(aux),
+    return {"rank": ctx.rank, "coords": mesh.coords,
+            "y": y.detach().float().cpu(), "aux": float(aux.detach()),
+            "grads": {k: v.grad.float().cpu() for k, v in p.items()},
+            "x_grad": x.grad.float().cpu(), "backward_ms": backward_ms,
             "sel": sel.reshape(-1, 2).cpu(), "gate": gate.reshape(-1, 2).cpu(),
             "call_ms": sorted(call_ms)[len(call_ms) // 2],
             "collective_ms": coll["ms"], "collective_bytes": coll["bytes"],
             "weight_bytes": sum(v.numel() * v.element_size()
                                 for v in p.values()),
-            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+            "max_memory_allocated": _peak(torch, dev)}
+
+
+def moe_grad_reference(torch, MOE, A2A, SH, cfg, full, x, ct, shape, ranks,
+                       keeps) -> dict:
+    """The gradients of ``sum(y * ct) + aux`` through the plain per-token
+    fp32 MoE, one process: each rank's block routed as the rank routed it
+    (the same block shape, so the same selections; checked) with the keep
+    mask of the host's replay, the aux over every token.  Returns the
+    gradients of x and of each leaf."""
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in full.items()}
+    xg = x.detach().clone().requires_grad_()
+    k = cfg.experts_per_token
+    loss = 0.0
+    for r, keep in zip(ranks, keeps):
+        mesh = SH.Mesh(shape, r["rank"])
+        xb = A2A.rank_block(xg, mesh)
+        G, Tg = MOE.groups_of(xb)
+        _, gate, sel = MOE.route(leaves, cfg, xb.reshape(G, Tg, -1))
+        check(torch.equal(sel.reshape(-1, k).cpu(), r["sel"].long()),
+              "moe_a2a: the reference's selections are not the rank's")
+        y = moe_plain(torch, leaves, xb.reshape(-1, cfg.d_model),
+                      gate.reshape(-1, k), sel.reshape(-1, k), keep)
+        loss = loss + torch.sum(y * A2A.rank_block(ct, mesh).reshape(y.shape))
+    G, Tg = MOE.groups_of(xg)
+    probs, _, sel_all = MOE.route(leaves, cfg, xg.reshape(G, Tg, -1))
+    (loss + MOE.aux_loss(cfg, probs, sel_all)).backward()
+    out = {k: v.grad for k, v in leaves.items()}
+    out["x"] = xg.grad
+    return out
+
+
+def moe_placed_grads(torch, A2A, SH, cfg, shape, got, like: dict) -> dict:
+    """The ranks' gradients as global tensors: a rank's expert slices and
+    token block placed (``w_spec``/``x_spec``), the router's summed."""
+    out = {k: torch.zeros(v.shape, dtype=torch.float32) for k, v in
+           like.items()}
+    for r in got:
+        mesh = SH.Mesh(shape, r["rank"])
+        fsdp = A2A.fsdp_axes(mesh, cfg, cfg.d_model)
+        A2A.rank_block(out["x"], mesh)[...] = r["x_grad"]
+        for k, g in r["grads"].items():
+            if k == "router":
+                out[k] += g
+                continue
+            e0 = mesh.coords["model"] * g.shape[0]
+            d0 = (mesh.index(fsdp) if fsdp else 0) * g.shape[1]
+            out[k][e0:e0 + g.shape[0], d0:d0 + g.shape[1]] = g
+    return out
 
 
 def a2a_keep(np, sels: list, tp: int, E: int, cap: int):
@@ -2406,14 +2552,16 @@ def moe_a2a_phase(np, torch, MS, SH, MOE, A2A, cfg, dev, dist_dir) -> dict:
     axis).  Each rank's output against the plain per-token reference
     with the keep mask the host replay of the routing gives, and the
     global aux against the single-process value on the same tokens."""
-    torch.cuda.empty_cache()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     full = moe_layer_weights(torch, cfg, range(cfg.num_experts), dev)
     x = moe_tokens(torch, cfg, dev)
+    ct = moe_cotangent(torch, cfg, dev)
     G, Tg = MOE.groups_of(x)
     probs, _, sel1 = MOE.route(full, cfg, x.reshape(G, Tg, -1))
     aux1 = float(MOE.aux_loss(cfg, probs, sel1))
     out = {"tokens": [MOE_BATCH, MOE_SEQ], "single_process_aux": aux1}
-    with MS.RankPool(MOE_RANKS, backend="gloo",
+    with MS.RankPool(MOE_RANKS, backend="gloo", device=dev,
                      init_method=f"file://{dist_dir}/moe_store",
                      timeout_s=DIST_TIMEOUT_S) as pool:
         for shape in MOE_MESHES:
@@ -2424,6 +2572,7 @@ def moe_a2a_phase(np, torch, MS, SH, MOE, A2A, cfg, dev, dist_dir) -> dict:
                 rows.setdefault(r["coords"]["data"], {})[
                     r["coords"]["model"]] = r
             worst, sender, receiver = 0.0, 0, 0
+            ordered, all_keeps = [], []
             for row in rows.values():
                 ranks = [row[m] for m in range(tp)]
                 T_l = ranks[0]["sel"].shape[0]
@@ -2434,6 +2583,8 @@ def moe_a2a_phase(np, torch, MS, SH, MOE, A2A, cfg, dev, dist_dir) -> dict:
                     cfg.num_experts, cap)
                 sender += s_d
                 receiver += r_d
+                ordered += ranks
+                all_keeps += keeps
                 for r, keep in zip(ranks, keeps):
                     xb = A2A.rank_block(x, SH.Mesh(shape, r["rank"]))
                     ref = moe_plain(torch, full, xb.reshape(-1, cfg.d_model),
@@ -2445,10 +2596,22 @@ def moe_a2a_phase(np, torch, MS, SH, MOE, A2A, cfg, dev, dist_dir) -> dict:
             auxes = {r["aux"] for r in got}
             aux_rel = abs(next(iter(auxes)) - aux1) / aux1
             name = "x".join(f"{a}{n}" for a, n in shape.items())
+            want = moe_grad_reference(torch, MOE, A2A, SH, cfg, full, x, ct,
+                                      shape, ordered, all_keeps)
+            placed = moe_placed_grads(torch, A2A, SH, cfg, shape, got, want)
+            grad_err = {k: float((placed[k] - w.float().cpu()).abs().max()
+                                 / w.float().abs().max())
+                        for k, w in want.items()}
+            del want, placed
+            check(max(grad_err.values()) <= MOE_GRAD_TOL,
+                  f"moe_a2a {name}: gradients {grad_err} of max|grad| from "
+                  f"the plain reference's")
             res = {"mesh": shape, "experts_a_rank": cfg.num_experts // tp,
                    "rel_err": worst, "tol": MOE_PLAIN_TOL,
                    "sender_drops": sender, "receiver_drops": receiver,
                    "aux": next(iter(auxes)), "aux_rel": aux_rel,
+                   "grad_rel_err": grad_err, "grad_tol": MOE_GRAD_TOL,
+                   "backward_ms": [r["backward_ms"] for r in got],
                    "call_ms": [r["call_ms"] for r in got],
                    "collective_ms": [r["collective_ms"] for r in got],
                    "collective_bytes": [r["collective_bytes"] for r in got],
@@ -2462,6 +2625,621 @@ def moe_a2a_phase(np, torch, MS, SH, MOE, A2A, cfg, dev, dist_dir) -> dict:
                   f"moe_a2a {name}: aux {auxes} against {aux1}")
             out[name] = res
     say("moe_a2a", **out)
+    return out
+
+
+# ======================================================================
+# The SSM and hybrid families (mamba2-780m and hymba-1.5b at full width and
+# depth; no SpMV kernel on either)
+# ======================================================================
+def _pairs(start: int, new: int, window: int) -> int:
+    """The causal (query, key) pairs of ``new`` queries at positions
+    ``start``, ``start + 1``, ..., each attending to at most ``window``
+    keys (0: every key before it)."""
+    return sum(min(p + 1, window) if window else p + 1
+               for p in range(start, start + new))
+
+
+def ssm_products(cfg, windows, rows: int, new: int, start: int) -> int:
+    """The products beyond the matrices' of ``rows`` sequences of ``new``
+    tokens after ``start`` cached ones: the SSD's (the chunked scan's
+    diagonal blocks, chunk states and off-diagonal term for a prompt, the
+    recurrent update and read-out for one token) and a hybrid layer's
+    attention scores and values over each query's keys (its window's)."""
+    H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    if new > 1:
+        Q = min(cfg.ssm_chunk, new)
+        ssd = 2 * Q * N + 2 * H * Q * P + 4 * H * N * P
+    else:
+        ssd = 4 * H * N * P
+    ops = cfg.num_layers * rows * new * ssd
+    if cfg.num_heads:
+        ops += sum(2 * 2 * cfg.num_heads * cfg.head_dim * rows
+                   * _pairs(start, new, w) for w in windows)
+    return ops
+
+
+def ssm_cache_bytes(cfg, windows, rows: int, positions: int,
+                    step: bool) -> int:
+    """The cache bytes a forward moves: the SSD states (fp32; read and
+    written by a decode step, written by a prefill) and the K/V of
+    ``positions`` (a window layer's at most its window) read by a decode
+    step or written by a prefill."""
+    state = (cfg.num_layers * rows * cfg.ssm_heads * cfg.ssm_state
+             * cfg.ssm_head_dim * 4)
+    kv = sum(rows * (min(positions, w) if w else positions)
+             * cfg.num_kv_heads * cfg.head_dim * 2 * 2 for w in windows
+             ) if cfg.num_heads else 0
+    return state * (2 if step else 1) + kv
+
+
+def ssm_bounds(cfg, windows, n_matrix: int, rows: int, new: int, start: int,
+               weight_bytes: int, cache_bytes: int) -> dict:
+    """The least time of a forward: every weight byte and the cache bytes
+    over the memory rate, or 2 x tokens x the bf16 matrix elements (the
+    tied embedding counted once, as the head's product) plus
+    ``ssm_products`` over the tensor cores' peak, whichever is larger."""
+    ops = 2 * rows * new * n_matrix + ssm_products(cfg, windows, rows, new,
+                                                   start)
+    bytes_ms = (weight_bytes + cache_bytes) / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "tflop": ops / 1e12}
+
+
+def ssm_recurrence(torch, xs, dt, a, B, C):
+    """The plain SSD in fp32, one position at a time: ``state = state *
+    exp(dt a) + B (x) dt x``, ``y = C . state``; xs [b,S,H,P], dt [b,S,H],
+    B, C [b,S,N] -> y [b,S,H,P] fp32."""
+    f = torch.float32
+    xs, dt, B, C = xs.to(f), dt.to(f), B.to(f), C.to(f)
+    state = xs.new_zeros((xs.shape[0], xs.shape[2], B.shape[-1],
+                          xs.shape[3]))
+    ys = []
+    for t in range(xs.shape[1]):
+        state = (state * torch.exp(dt[:, t] * a)[..., None, None]
+                 + torch.einsum("bn,bh,bhp->bhnp", B[:, t], dt[:, t],
+                                xs[:, t]))
+        ys.append(torch.einsum("bn,bhnp->bhp", C[:, t], state))
+    return torch.stack(ys, dim=1)
+
+
+class CallTap:
+    """Counts the calls of ``module.name`` while active, and keeps the
+    first call's arguments and result (the library is untouched: its
+    callers reach the function through the module)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.calls, self.first = 0, None
+
+    def __enter__(self):
+        fn = getattr(self.module, self.name)
+
+        def tapped(*args, **kw):
+            out = fn(*args, **kw)
+            if self.first is None:
+                self.first = (args, kw, out)
+            self.calls += 1
+            return out
+        self._fn = fn
+        setattr(self.module, self.name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._fn)
+
+
+def ssm_decode_vs_forward(np, torch, T, SE, model, cfg, prompt,
+                          got) -> dict:
+    """The greedy decode of ``prompt`` alone, as ``generate`` runs it (a
+    prefill in a cache of ``len(prompt) + len(got)`` positions, then one
+    decode step a token, batch 1), teacher-forced along ``got``, and one
+    full forward over the same tokens.  Its logits are ``generate``'s
+    while ``got`` is their argmax, so ``generate`` alone gives ``got`` up
+    to the first position whose argmax differs, and that argmax there.
+    Returns the largest difference of the two paths' logits of
+    max|logit|, the first position where ``generate`` alone differs
+    (None: equal) with the decode's gap there, and how many tokens of
+    ``got`` are each path's argmax."""
+    dev = model.embed.device
+    row = np.concatenate([prompt, got[:-1]])
+    fwd = T.forward(model, cfg, torch.as_tensor(row[None], device=dev)
+                    )[0][0, len(prompt) - 1:].float()
+    caches = T.init_cache(cfg, 1, len(prompt) + len(got), dev)
+    logits, caches = SE.make_prefill_step(cfg)(
+        model, {"tokens": torch.as_tensor(prompt[None], device=dev)}, caches)
+    dec = [logits[0, -1]]
+    decode = SE.make_decode_step(cfg)
+    for tok in got[:-1]:
+        logits, caches = decode(model, torch.tensor(
+            [[int(tok)]], device=dev), caches)
+        dec.append(logits[0, -1])
+    dec = torch.stack(dec).float()
+    check(bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all()),
+          "a logit of the decode or the full forward is not finite")
+    got_t = torch.as_tensor(np.asarray(got), device=dev)
+    best = dec.argmax(-1)
+    diff = torch.nonzero(best != got_t).flatten().tolist()
+    first = diff[0] if diff else None
+    gap = (float(dec[first, best[first]] - dec[first, got_t[first]])
+           if diff else 0.0)
+    return {"rel_err": float((dec - fwd).abs().max() / fwd.abs().max()),
+            "first_difference": first, "gap": gap,
+            "decode_argmax": int((best == got_t).sum()),
+            "forward_argmax": int((fwd.argmax(-1) == got_t).sum())}
+
+
+class Fp32Caches:
+    """While active, ``transformer.init_cache`` gives fp32 caches (the
+    port's, as the reference's, hold K/V and conv rows in bf16), so an
+    fp32 copy of a model serves in fp32 end to end.  The library is
+    untouched: the serving engine reaches ``init_cache`` through the
+    module."""
+
+    def __init__(self, torch, T):
+        self.torch, self.T = torch, T
+
+    def __enter__(self):
+        torch, init = self.torch, self.T.init_cache
+
+        def fp32(tree):
+            if torch.is_tensor(tree):
+                return tree.float() if tree.dtype == torch.bfloat16 else tree
+            if tree is None:
+                return None
+            if hasattr(tree, "_fields"):
+                return type(tree)(*(fp32(t) for t in tree))
+            return tuple(fp32(t) for t in tree)
+        self._init = init
+        self.T.init_cache = lambda *a, **kw: fp32(init(*a, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        self.T.init_cache = self._init
+
+
+def ssm_served(np, torch, T, SE, model, cfg, reqs, s_max: int, where: str,
+               gate_tol=None) -> dict:
+    """The launcher's slot server on ``reqs``, then each request against
+    ``generate`` of its prompt alone and its decode's logits against a
+    full forward's (``ssm_decode_vs_forward``).  With ``gate_tol``: each
+    request equal to ``generate`` alone or a near tie at the first
+    difference, and the logits within ``gate_tol`` of max|logit|; else
+    reported."""
+    server = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    for r in reqs:
+        server.submit(r)
+    dev = model.embed.device
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    done = server.run()
+    _sync(torch, dev)
+    serve_s = time.perf_counter() - t0
+    check(sorted(done) == [r.rid for r in reqs]
+          and all(len(done[r.rid]) == r.max_new for r in reqs),
+          f"{where}: served {({k: len(v) for k, v in done.items()})}")
+    steps = [ssm_decode_vs_forward(np, torch, T, SE, model, cfg, r.prompt,
+                                   done[r.rid]) for r in reqs]
+    gaps = [st["gap"] for st in steps if st["first_difference"] is not None]
+    worst = max(st["rel_err"] for st in steps)
+    if gate_tol is not None:
+        check(all(g < LM_GAP for g in gaps),
+              f"{where}: served tokens differ from generate alone with "
+              f"logit gaps {gaps}")
+        check(worst <= gate_tol, f"{where}: the decode's logits are {worst} "
+                                 f"of max|logit| from the full forward's")
+    served = sum(len(v) for v in done.values())
+    return {"served_tokens": served, "serve_s": serve_s,
+            "tokens_per_s": served / serve_s,
+            "equal_to_generate_alone": len(steps) - len(gaps),
+            "first_difference_gaps": gaps,
+            "decode_vs_forward_max": worst, "decode_vs_forward": steps}
+
+
+def lm_ssm_serve_phase(np, torch, T, TA, SSM, SE, cfg, dev, long_len: int,
+                       cpu_cfg) -> dict:
+    """An SSM or hybrid LM at full width and depth served on ``dev`` as
+    ``python -m repro_torch.launch.serve --arch <cfg> --no-reduced`` serves
+    it (6 requests of 16 tokens, 2 slots, 12 new), timed; the prefill and
+    decode times beside their bounds; a prefill of ``long_len`` tokens
+    (hymba: blocked windows, flash in the global layers, rings from then
+    on) whose layer-0 SSD is held to the fp32 recurrence, then
+    ``SSM_DECODE`` steps from its cache.  In bf16 the recurrent decode is
+    not the full forward's arithmetic and drifts from it with depth (so
+    does the reference's: see ``SSM_DECODE_TOL``), so the bf16 run's requests
+    against ``generate`` alone and its decode against a full forward are
+    reported; the same weights in fp32 (fp32 caches) are then served again
+    and held: each request equal to ``generate`` alone or a near tie, the
+    decode's logits (the served ones, and past the long prefill) within
+    ``SSM_DECODE_TOL`` of a full forward's.  ``cpu_cfg`` on the card
+    against the CPU."""
+    where = f"lm_ssm_serve {cfg.name}"
+    sections, t_sec = {}, time.perf_counter()
+
+    def section(name):
+        nonlocal t_sec
+        sections[name] = time.perf_counter() - t_sec
+        t_sec = time.perf_counter()
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init_lm(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    n_matrix = sum(p.numel() for p in params if p.dtype == torch.bfloat16)
+    plan = T.build_plan(cfg).stacks[0]
+    windows = plan.windows
+    check(plan.kind in ("ssm", "hybrid") and plan.n == cfg.num_layers,
+          f"{where}: plan {plan}")
+
+    # ---- the slot server: launch/serve's defaults, bf16 ----
+    rng = np.random.default_rng(0)
+    s_max = LM_PROMPT + LM_MAX_NEW + 8
+    reqs = [SE.Request(rid, rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                       .astype(np.int32), LM_MAX_NEW)
+            for rid in range(LM_REQUESTS)]
+    warm = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    warm.submit(reqs[0])
+    warm.run()
+    del warm
+    bf16 = ssm_served(np, torch, T, SE, model, cfg, reqs, s_max, where)
+    section("serve_bf16")
+
+    # ---- step times beside their bounds ----
+    prefill = SE.make_prefill_step(cfg)
+    decode = SE.make_decode_step(cfg)
+
+    def prefill_ms(n):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                               device=dev)
+
+        def run():
+            logits, _ = prefill(model, {"tokens": toks},
+                                T.init_cache(cfg, 1, n, dev))
+            check(bool(torch.isfinite(logits).all()),
+                  f"{where}: prefill {n} logits not finite")
+        return median_ms(torch, dev, run), ssm_bounds(
+            cfg, windows, n_matrix, 1, n, 0, weight_bytes,
+            ssm_cache_bytes(cfg, windows, 1, n, False))
+
+    short_ms, short_bound = prefill_ms(LM_PROMPT)
+    long_ms, long_bound = prefill_ms(long_len)
+    caches = SE._slot_positions(T.init_cache(cfg, LM_SLOTS, s_max, dev),
+                                LM_SLOTS)
+    for slot, r in enumerate(reqs[:LM_SLOTS]):
+        one = T.init_cache(cfg, 1, s_max, dev)
+        _, one = prefill(model, {"tokens": torch.as_tensor(
+            r.prompt[None], device=dev)}, one)
+        SE._write_slot(caches, one, slot)
+    tok = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=dev)
+    state = {"caches": caches}
+
+    def step():
+        logits, state["caches"] = decode(model, tok, state["caches"])
+        return logits
+
+    decode_ms = median_ms(torch, dev, step)
+    check(bool(torch.isfinite(step()).all()), f"{where}: decode logits not "
+                                              f"finite")
+    decode_bound = ssm_bounds(cfg, windows, n_matrix, LM_SLOTS, 1, LM_PROMPT,
+                              weight_bytes, ssm_cache_bytes(
+                                  cfg, windows, LM_SLOTS, s_max, True))
+    peak = _peak(torch, dev)
+    profiles = {}
+    if dev.type == "cuda":  # one step: the profiler's own cost grows with
+        # the ops it records (~10,000 a step here)
+        profiles["decode_x1"] = device_profile(torch, step)
+        long_toks = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (1, long_len)), device=dev)
+        profiles[f"prefill_{long_len}"] = device_profile(
+            torch, lambda: prefill(model, {"tokens": long_toks},
+                                   T.init_cache(cfg, 1, long_len, dev)))
+    del caches, state
+    section("times_and_profiles")
+
+    # ---- the long prefill: its paths, layer 0's scan, decode past it ----
+    prompt = rng.integers(0, cfg.vocab_size, long_len)
+    with CallTap(SSM, "ssd_chunked") as scan, \
+            CallTap(TA, "swa_attention_blocked") as swa, \
+            CallTap(TA, "flash_attention") as flash:
+        logits, caches = prefill(model, {"tokens": torch.as_tensor(
+            prompt[None], device=dev)}, T.init_cache(
+                cfg, 1, long_len + SSM_DECODE, dev))
+    n_swa = sum(1 for w in windows if w and long_len > w)
+    n_flash = sum(1 for w in windows if not w) if cfg.num_heads and \
+        long_len > TA.FLASH_THRESHOLD else 0
+    check(scan.calls == cfg.num_layers and swa.calls == n_swa
+          and flash.calls == n_flash,
+          f"{where}: the long prefill ran {scan.calls} scans, {swa.calls} "
+          f"blocked windows, {flash.calls} flash (want {cfg.num_layers}, "
+          f"{n_swa}, {n_flash})")
+    (xs, dt, a, B, C, chunk), _, (y_scan, _) = scan.first
+    y_ref = ssm_recurrence(torch, xs, dt, a, B, C)
+    scan_err = float((y_scan.float() - y_ref).abs().max()
+                     / y_ref.abs().max())
+    check(scan_err <= SSM_SCAN_TOL, f"{where}: layer 0's chunked scan at "
+                                    f"{long_len} tokens is {scan_err} of "
+                                    f"max|y| from the fp32 recurrence")
+    del xs, dt, B, C, y_scan, y_ref, scan
+    got = []
+    nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for _ in range(SSM_DECODE):
+        got.append(int(nxt[0, 0]))
+        logits, caches = decode(model, nxt, caches)
+        check(bool(torch.isfinite(logits).all()), f"{where}: a decode step "
+                                                  f"past the prefill is "
+                                                  f"not finite")
+        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del caches
+    got = np.asarray(got)
+    past_bf16 = ssm_decode_vs_forward(np, torch, T, SE, model, cfg, prompt,
+                                      got)
+    section("long_prefill_bf16")
+
+    # ---- the same weights in fp32: the serving checks held ----
+    model.float()
+    with Fp32Caches(torch, T):
+        fp32 = ssm_served(np, torch, T, SE, model, cfg, reqs, s_max,
+                          f"{where} (fp32)", gate_tol=SSM_DECODE_TOL)
+        past = ssm_decode_vs_forward(np, torch, T, SE, model, cfg, prompt,
+                                     got)
+    check(past["rel_err"] <= SSM_DECODE_TOL,
+          f"{where} (fp32): the decode past {long_len} tokens is "
+          f"{past['rel_err']} of max|logit| from the full forward")
+    section("fp32_checks")
+    out = dict(arch=cfg.name, layers=cfg.num_layers, kind=plan.kind,
+               windows=sorted(set(windows)), matrix_elements=n_matrix,
+               weight_bytes=weight_bytes, init_s=init_s,
+               requests=LM_REQUESTS, slots=LM_SLOTS, prompt=LM_PROMPT,
+               max_new=LM_MAX_NEW, bf16=bf16, fp32=fp32,
+               decode_tol=SSM_DECODE_TOL,
+               prefill_ms={LM_PROMPT: short_ms, long_len: long_ms},
+               prefill_bound={LM_PROMPT: short_bound, long_len: long_bound},
+               decode_ms=decode_ms, decode_bound=decode_bound,
+               long_prefill={"scans": cfg.num_layers, "blocked_windows": n_swa,
+                             "flash": n_flash, "scan_vs_recurrence": scan_err,
+                             "scan_tol": SSM_SCAN_TOL,
+                             "decode_steps": SSM_DECODE,
+                             "decode_vs_forward_bf16": past_bf16,
+                             "decode_vs_forward_fp32": past},
+               profiles=profiles or "not measured",
+               max_memory_allocated=peak)
+    del model
+    _sync(torch, dev)
+
+    # ---- the reduced config on the card against the CPU ----
+    host = T.init_lm(cpu_cfg, seed=0, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    toks = rng.integers(0, cpu_cfg.vocab_size, (2, 40))
+    lc = T.forward(host, cpu_cfg, torch.as_tensor(toks))[0].float()
+    lg = T.forward(card, cpu_cfg, torch.as_tensor(toks, device=dev)
+                   )[0].float().cpu()
+    out["card_vs_cpu"] = float((lg - lc).abs().max() / lc.abs().max())
+    out["card_vs_cpu_tol"] = LM_CARD_TOL
+    check(out["card_vs_cpu"] <= LM_CARD_TOL,
+          f"{where}: {cpu_cfg.name} on the card is {out['card_vs_cpu']} of "
+          f"max|logit| from the CPU")
+    section("card_vs_cpu")
+    out["section_s"] = sections
+    say("lm_ssm_serve", **out)
+    return out
+
+
+def ssm_small_cfg(cfg, ssm_layers: int):
+    """The reduced config held on the card against the CPU or checkpointed:
+    mamba2 at ``ssm_layers`` (8: the stacked [L, ...] leaves), hymba at
+    ``SSM_HYBRID_LAYERS`` (layer 1 windowed between global ones)."""
+    small = cfg.reduced()
+    layers = SSM_HYBRID_LAYERS if cfg.num_heads else ssm_layers
+    return dataclasses.replace(small, num_layers=layers)
+
+
+def lm_ssm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, cfg, dev,
+                       long_len: int, small_cfg) -> dict:
+    """An SSM or hybrid LM at full width and depth trained on ``dev`` as
+    ``python -m repro_torch.launch.train --arch <cfg>`` trains it (batch
+    8, seq 128, lr 3e-4 warmed up over 1 of 10 steps; the config's AdamW,
+    remat "full", tied embeddings), then 2 steps at 1 x ``long_len`` (the
+    SSD's and, for hymba, the blocked window's backward past the window),
+    and a checkpoint round trip of ``small_cfg``."""
+    where = f"lm_ssm_train {cfg.name}"
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat,
+           "optimizer": cfg.optimizer}
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = TR.init_state(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    out["init_s"] = time.perf_counter() - t0
+    params = list(state.params.parameters())
+    n_params = sum(p.numel() for p in params)
+    n_matrix = sum(p.numel() for p in params if p.dtype == torch.bfloat16)
+    windows = T.build_plan(cfg).stacks[0].windows
+    schedule = OPT.cosine_schedule(LM_TRAIN_LR,
+                                   warmup=max(LM_TRAIN_STEPS // 10, 1),
+                                   total=LM_TRAIN_STEPS)
+    step_fn = TR.make_train_step(cfg, schedule=schedule)
+    pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size, LM_TRAIN_SEQ),
+                           LM_TRAIN_BATCH)
+    state, losses, gnorms, ms = _train_steps(
+        torch, TR, state, step_fn,
+        [pipe.next_batch() for _ in range(LM_TRAIN_STEPS)], dev)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{where}: loss {losses} grad norm {gnorms}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"{where}: the mean loss of the last 3 steps {losses[-3:]} is not "
+          f"below the first step's {losses[0]}")
+
+    def bound(rows, seq):
+        ops = 8 * n_matrix * rows * seq + 4 * ssm_products(
+            cfg, windows, rows, seq, 0)
+        ops_ms = ops / H100_BF16_TENSOR_OPS_PER_S * 1e3
+        bytes_ms = LM_TRAIN_OPT_BYTES * n_params / H100_BYTES_PER_S * 1e3
+        return {"bound_ms": ops_ms + bytes_ms, "ops_ms": ops_ms,
+                "bytes_ms": bytes_ms, "tflop": ops / 1e12}
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    out.update(parameters=n_params, matrix_elements=n_matrix,
+               batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
+               losses=losses, grad_norms=gnorms, step_ms=ms,
+               step_ms_median=steady, tokens_per_s=tokens / steady * 1e3,
+               bound=bound(LM_TRAIN_BATCH, LM_TRAIN_SEQ))
+    if dev.type == "cuda":
+        held = {"state": state}
+
+        def profiled():
+            held["state"], m = step_fn(held["state"], pipe.next_batch())
+            return m
+        out["profile"] = device_profile(torch, profiled)
+        state = held.pop("state")
+    out["max_memory_allocated"] = _peak(torch, dev)
+
+    # ---- 2 steps at 1 x long_len ----
+    long_pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size, long_len),
+                                1)
+    with CallTap(TA, "swa_attention_blocked") as swa:
+        state, l_losses, l_gn, l_ms = _train_steps(
+            torch, TR, state, step_fn,
+            [long_pipe.next_batch() for _ in range(2)], dev)
+    check(all(np.isfinite(l_losses)) and all(np.isfinite(l_gn)),
+          f"{where}: at {long_len} tokens loss {l_losses} grad norm {l_gn}")
+    n_swa = sum(1 for w in windows if w and long_len > w)
+    # remat "full" runs each block's forward again in the backward
+    check(swa.calls == 2 * 2 * n_swa, f"{where}: {swa.calls} blocked "
+                                      f"window calls in 2 steps, want "
+                                      f"{4 * n_swa}")
+    out["long"] = dict(tokens=long_len, losses=l_losses, grad_norms=l_gn,
+                       step_ms=l_ms, blocked_window_calls=swa.calls,
+                       bound=bound(1, long_len),
+                       max_memory_allocated=_peak(torch, dev))
+    del state, step_fn
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["checkpoint"] = checkpoint_round_trip(torch, TR, DP, CK, small_cfg,
+                                              dev, where)
+    say("lm_ssm_train", **out)
+    return out
+
+
+def ssd_seq_inputs(torch, SSM, cfg, dev) -> tuple:
+    """One mamba2 layer's SSD inputs at full width, 1 x SSM_SEQ_LEN, from
+    ``SSM_SEQ_SEED``: x, B, C bf16 as the conv gives them, dt a softplus
+    of N(-3, 1) (about 0.005-0.3, mamba2's init range), a = -A with A in
+    [1, 16] (its init range), and the output's cotangent (fp32)."""
+    gen = torch.Generator(device=dev).manual_seed(SSM_SEQ_SEED)
+    S, H, N, P = SSM_SEQ_LEN, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    xs = draw(1, S, H, P).to(torch.bfloat16)
+    dt = SSM.softplus(draw(1, S, H) - 3.0)
+    a = -(1.0 + 15.0 * torch.rand((H,), generator=gen, device=dev))
+    B = draw(1, S, N).to(torch.bfloat16)
+    C = draw(1, S, N).to(torch.bfloat16)
+    return (xs, dt, a, B, C), draw(1, S, H, P)
+
+
+def rank_ssd_job(ctx, cfg, reps: int) -> dict:
+    """The SSD of one mamba2 layer on this rank of a 1 x SSM_SEQ_RANKS
+    mesh: its block of the sequence (``moe_a2a.rank_block``), the
+    sequence-parallel call and the backward of its share of ``sum(y *
+    ct)``, then ``reps`` timed forward calls with the all-gather's bytes
+    counted.  Returns its y block, the gradients, the times and bytes."""
+    import torch
+
+    from repro_torch.dist import exchange as X
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.models import moe_a2a as A2A
+    from repro_torch.models import ssm as SSM
+    dev = ctx.device
+    mesh = Mesh.build({"data": 1, "model": SSM_SEQ_RANKS}, ctx.rank)
+    args, ct = ssd_seq_inputs(torch, SSM, cfg, dev)
+    local = [(t if t.ndim == 1 else A2A.rank_block(t, mesh)).clone()
+             .requires_grad_() for t in args]
+    y = SSM._ssd_seq_parallel_call(*local, cfg.ssm_chunk, mesh)
+    torch.sum(y.float() * A2A.rank_block(ct, mesh)).backward()
+    gathered = {"bytes": 0}
+    original = X.all_gather
+
+    def counted(t, group, *a, **kw):
+        out = original(t, group, *a, **kw)
+        gathered["bytes"] += out.numel() * out.element_size()
+        return out
+    X.all_gather = counted
+    try:
+        call_ms = []
+        for _ in range(reps):
+            gathered["bytes"] = 0
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                SSM._ssd_seq_parallel_call(*local, cfg.ssm_chunk, mesh)
+            _sync(torch, dev)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        X.all_gather = original
+    return {"rank": ctx.rank, "y": y.detach().float().cpu(),
+            "grads": [t.grad.float().cpu() for t in local],
+            "call_ms": sorted(call_ms)[len(call_ms) // 2],
+            "gathered_bytes": gathered["bytes"],
+            "max_memory_allocated": _peak(torch, dev)}
+
+
+def ssd_seq_parallel_phase(np, torch, MS, SH, A2A, SSM, cfg, dev,
+                           dist_dir) -> dict:
+    """One mamba2 layer's SSD at full width (48 heads of 64, state 128,
+    chunk 128) sequence-parallel on SSM_SEQ_RANKS gloo ranks sharing the
+    card (1,024 tokens, 8 chunks a rank): each rank's y block and the
+    gradients of x, dt, B, C (placed) and a (summed over the ranks)
+    against one process's ``ssd_chunked`` over the whole sequence."""
+    args, ct = ssd_seq_inputs(torch, SSM, cfg, dev)
+    full = [t.clone().requires_grad_() for t in args]
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    y, _ = SSM.ssd_chunked(*full, cfg.ssm_chunk)
+    _sync(torch, dev)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    torch.sum(y.float() * ct).backward()
+    with MS.RankPool(SSM_SEQ_RANKS, backend="gloo", device=dev,
+                     init_method=f"file://{dist_dir}/ssd_store",
+                     timeout_s=DIST_TIMEOUT_S) as pool:
+        got = pool.run(rank_ssd_job, cfg, SSM_SEQ_REPS)
+    shape = {"data": 1, "model": SSM_SEQ_RANKS}
+    y_ranks = torch.zeros(y.shape)
+    grads = [torch.zeros(t.shape) for t in args]
+    for r in got:
+        mesh = SH.Mesh(shape, r["rank"])
+        A2A.rank_block(y_ranks, mesh)[...] = r["y"]
+        for g, rg in zip(grads, r["grads"]):
+            if g.ndim == 1:
+                g += rg
+            else:
+                A2A.rank_block(g, mesh)[...] = rg
+
+    def rel(a, b):
+        return float((a.float().cpu() - b).abs().max() / a.float().abs().max())
+    errs = {"y": rel(y.detach(), y_ranks)}
+    errs.update({n: rel(t.grad, g) for n, t, g in zip(
+        ("x", "dt", "a", "B", "C"), full, grads)})
+    check(max(errs.values()) <= SSM_SEQ_TOL,
+          f"ssd_seq_parallel: {errs} of max|y| and max|grad| from one "
+          f"process's scan")
+    out = {"arch": cfg.name, "tokens": SSM_SEQ_LEN, "ranks": SSM_SEQ_RANKS,
+           "chunks_a_rank": SSM_SEQ_LEN // SSM_SEQ_RANKS // cfg.ssm_chunk,
+           "rel_err": errs, "tol": SSM_SEQ_TOL, "one_process_ms": one_ms,
+           "call_ms": [r["call_ms"] for r in got],
+           "gathered_bytes_a_rank": [r["gathered_bytes"] for r in got],
+           "max_memory_allocated": [r["max_memory_allocated"] for r in got]}
+    say("ssd_seq_parallel", **out)
     return out
 
 
@@ -2495,6 +3273,7 @@ def main() -> int:
         from repro_torch.models import layers as LY
         from repro_torch.models import moe as MOE
         from repro_torch.models import moe_a2a as A2A
+        from repro_torch.models import ssm as SSM
         from repro_torch.models import transformer as T
         from repro_torch.serve import engine as SE
         from repro_torch.serve import graph as SG
@@ -3005,6 +3784,34 @@ def main() -> int:
     check(not any(K.spmv_partials.launches_by_form.values()),
           "moe_a2a launched an SpMV kernel")
     phase_s["moe_a2a"] = time.perf_counter() - t_phase
+
+    # ---- 25-27. the SSM and hybrid families at full width and depth (no
+    # SpMV kernel on them) ----
+    for arch in SSM_ARCHS:
+        t_phase = time.perf_counter()
+        K.reset_launch_counts()
+        lm_ssm_serve_phase(np, torch, T, TA, SSM, SE, get_config(arch), dev,
+                           LM_LONG, ssm_small_cfg(get_config(arch), 2))
+        check(not any(K.spmv_partials.launches_by_form.values()),
+              f"lm_ssm_serve {arch} launched an SpMV kernel")
+        phase_s[f"lm_ssm_serve {arch}"] = time.perf_counter() - t_phase
+    for arch in SSM_ARCHS:
+        t_phase = time.perf_counter()
+        K.reset_launch_counts()
+        lm_ssm_train_phase(np, torch, T, TA, TR, OPT, DP, CK,
+                           get_config(arch), dev, LM_LONG,
+                           ssm_small_cfg(get_config(arch), 8))
+        check(not any(K.spmv_partials.launches_by_form.values()),
+              f"lm_ssm_train {arch} launched an SpMV kernel")
+        phase_s[f"lm_ssm_train {arch}"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as ssd_dir:
+        ssd_seq_parallel_phase(np, torch, MS, SH, A2A, SSM,
+                               get_config("mamba2-780m"), dev, ssd_dir)
+    check(not any(K.spmv_partials.launches_by_form.values()),
+          "ssd_seq_parallel launched an SpMV kernel")
+    phase_s["ssd_seq_parallel"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
     # ---- 25. kernels line, card, last line ----

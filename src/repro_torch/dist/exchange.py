@@ -25,6 +25,15 @@ Neither gloo nor NCCL carries int16, so a payload of a dtype outside
 arrival).  A :class:`ShapeOnlyGroup` stands in for a process group where
 only shapes matter (``core.engine.lower_tick_for_mesh``).
 
+**Gradients.**  :func:`all_to_all`, :func:`all_gather` and
+:func:`all_reduce_sum` are ``torch.autograd.Function``s, as JAX
+differentiates its collectives under ``shard_map``: the all-to-all's
+backward is the same all-to-all (equal splits make it its own adjoint),
+the tiled all-gather's a reduce-scatter (sum) of the gradient, the
+all-reduce's an all-reduce of the gradient.  The wire view is only the
+forward's transport: a gradient crosses a permutation as its bytes, and
+is summed in its own float dtype.
+
 **Deferred delivery.**  A send buffer produced at tick ``t`` for link
 ``p -> q`` is parked in a :class:`DelayRing` and delivered at tick
 ``t + delays[p, q]``.  The ring is indexed by send tick modulo its length
@@ -205,10 +214,7 @@ def as_wire(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype in _NATIVE else x.view(torch.uint8)
 
 
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Rows ``[size * k, ...]`` -> rows ``[size * k, ...]``: block ``q`` of
-    the result is the block this rank's peer ``q`` addressed to it (equal
-    splits on dim 0)."""
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if isinstance(group, ShapeOnlyGroup):
         return torch.empty_like(x)
     wire = as_wire(x)
@@ -217,13 +223,26 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out if out.dtype == x.dtype else out.view(x.dtype)
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """Every rank's ``x`` joined along ``dim`` in group-rank order (JAX's
-    tiled ``all_gather``); a dtype outside ``_NATIVE`` crosses as its
-    bytes (``as_wire``).  A group of one rank returns ``x`` (no copy
-    through the backend, as XLA elides a gather over an axis of 1)."""
-    if group_size(group) == 1:
-        return x
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Rows ``[size * k, ...]`` -> rows ``[size * k, ...]``: block ``q`` of
+    the result is the block this rank's peer ``q`` addressed to it (equal
+    splits on dim 0).  Differentiable: the gradient takes the same
+    route back."""
+    return _AllToAll.apply(x, group)
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     wire = as_wire(x)
     parts = [torch.empty_like(wire) for _ in range(group_size(group))]
     dist.all_gather(parts, wire, group=group)
@@ -231,13 +250,64 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                       for p in parts], dim)
 
 
-def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over the group's ranks (``x`` is left as it was)."""
+def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum over the group of each rank's ``g``, block ``group_rank``
+    of it along ``dim`` (the tiled all-gather's adjoint), in ``g``'s
+    dtype."""
+    n = group_size(group)
+    blocks = g.movedim(dim, 0).contiguous()
+    out = blocks.new_empty((blocks.shape[0] // n,) + blocks.shape[1:])
+    dist.reduce_scatter_tensor(out, blocks, op=dist.ReduceOp.SUM,
+                               group=group)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim`` in group-rank order (JAX's
+    tiled ``all_gather``); a dtype outside ``_NATIVE`` crosses as its
+    bytes (``as_wire``).  A group of one rank returns ``x`` (no copy
+    through the backend, as XLA elides a gather over an axis of 1).
+    Differentiable: the gradient is reduce-scattered (summed) back."""
+    if group_size(group) == 1:
+        return x
+    return _AllGather.apply(x, group, dim % x.ndim)
+
+
+def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if isinstance(group, ShapeOnlyGroup):
         return x
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_sum(g, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks (``x`` is left as it was).
+    Differentiable: each rank's gradient is the sum of every rank's (the
+    adjoint of ``psum`` when each rank's loss holds its share)."""
+    return _AllReduceSum.apply(x, group)
 
 
 def exchange_dist(codec: WireCodec, send_vals: torch.Tensor,

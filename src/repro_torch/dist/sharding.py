@@ -160,19 +160,20 @@ class Mesh:
         self.groups = groups or {}
 
     @classmethod
-    def build(cls, shape: dict, rank: int) -> "Mesh":
+    def build(cls, shape: dict, rank: int) -> Optional["Mesh"]:
         """The mesh of this rank in the initialised default process group,
-        whose size must be the product of ``shape``.  Every rank calls it
-        with the same ``shape``: each call creates every group, in the same
-        order on every rank (``torch.distributed.new_group`` is
-        collective)."""
+        laid over its first ``prod(shape)`` ranks.  Every rank of the world
+        calls it with the same ``shape``: each call creates every group, in
+        the same order on every rank (``torch.distributed.new_group`` is
+        collective); a rank past the mesh gets ``None``."""
         names = list(shape)
         sizes = tuple(shape.values())
-        if dist.get_world_size() != math.prod(sizes):
+        if dist.get_world_size() < math.prod(sizes):
             raise ValueError(f"mesh {shape} needs {math.prod(sizes)} ranks, "
                              f"the world has {dist.get_world_size()}")
         grid = np.arange(math.prod(sizes)).reshape(sizes)
-        mine = np.unravel_index(rank, sizes)
+        outside = rank >= grid.size
+        mine = np.unravel_index(0 if outside else rank, sizes)
         groups = {}
         for n in range(1, len(names) + 1):
             for axes in itertools.combinations(names, n):
@@ -189,7 +190,7 @@ class Mesh:
                     group = dist.new_group(ranks)
                     if all(mine[i] == c for i, c in zip(fixed, other)):
                         groups[axes] = group
-        return cls(shape, rank, groups)
+        return None if outside else cls(shape, rank, groups)
 
     def group(self, axes) -> Any:
         """The process group over ``axes`` (a name or a tuple of names)."""

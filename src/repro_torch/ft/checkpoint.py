@@ -39,6 +39,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.attention import KVCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.models.transformer import LayerCache
 from repro_torch.train.optimizer import AdafactorState, AdamWState
 from repro_torch.train.trainer import TrainState
@@ -90,12 +91,11 @@ def _tree_structure(tree):
 
 
 # NamedTuple types restore() rebuilds; an unregistered one comes back as a
-# dict of its fields.  The JAX package's registry also holds the SSM and
-# encoder-decoder cache types; they join with their slices (item 14
-# slices 3 and 5).
+# dict of its fields.  The JAX package's registry also holds the
+# encoder-decoder cache type; it joins with its slice (item 14 slice 5).
 NAMED_TUPLES: dict[str, type] = {
-    c.__name__: c for c in (KVCache, LayerCache, TrainState, AdamWState,
-                            AdafactorState)}
+    c.__name__: c for c in (KVCache, LayerCache, SSMCache, TrainState,
+                            AdamWState, AdafactorState)}
 
 
 def _rebuild(struct, leaves: dict, prefix=""):

@@ -1,7 +1,7 @@
 """GQA/MQA attention with a KV cache: train, prefill and decode (the
 counterpart of the non-MLA half of ``repro.models.attention``).
 
-Two execution paths for causal attention, chosen by shape:
+Three execution paths for causal attention, chosen by shape:
   * dense masked attention — sequences up to ``FLASH_THRESHOLD``, and
     decode (a dense read over the KV cache);
   * flash attention        — longer train and prefill sequences: a loop
@@ -9,7 +9,16 @@ Two execution paths for causal attention, chosen by shape:
     O(Sq * chunk), not O(Sq * Sk)), and the FlashAttention-2 backward as
     a ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``):
     the forward saves (q, k, v, out, lse) and the backward recomputes
-    each chunk's scores from them.
+    each chunk's scores from them;
+  * blocked sliding window — a layer with a window shorter than the
+    sequence: a loop over query tiles of ``SWA_QTILE``, each attending to
+    the ``W + Tq`` keys that can reach it (O(S * (W + Tq)) products).
+
+A sliding-window layer's cache holds ``min(s_max, window)`` positions.
+When that is at most the window it is a ring: decode writes position
+``pos`` at slot ``pos % w`` and attends to the ``min(pos + 1, w)`` filled
+slots, and a prefill longer than the ring keeps its last ``w`` keys,
+rolled so that position ``p`` sits at slot ``p % w``.
 
 The arithmetic is the reference's, in torch ops: scores in fp32 scaled
 by ``1/sqrt(hd)``, masked with ``NEG_INF``, an fp32 softmax, and the
@@ -17,8 +26,9 @@ probabilities cast to the value dtype before the value product.
 
 The cache's ``pos`` is a scalar (one length for the batch, as in the
 reference and ``generate``) or a ``[B]`` int32 tensor (one per row, for
-the slot server): decode writes each row at its own position and masks
-each row by its own length.  Prefill and decode write K/V into the cache
+the slot server): decode writes each row at its own position (its own
+ring slot) and masks each row by its own length (its own filled share
+of the ring, its own window).  Prefill and decode write K/V into the cache
 tensors in place and return a cache holding them with the new ``pos``.
 """
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -65,8 +76,11 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
-                  device=None) -> KVCache:
-    shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+                  device=None, window: int = 0) -> KVCache:
+    """A zero cache of ``s_max`` positions, ``min(s_max, window)`` for a
+    sliding-window layer."""
+    s = min(s_max, window) if window else s_max
+    shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    torch.zeros((), dtype=torch.int32, device=device))
@@ -211,6 +225,46 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return _Flash.apply(q, k, v, causal, q_offset, chunk)
 
 
+SWA_QTILE = 256
+
+
+def swa_attention_blocked(q, k, v, window: int) -> torch.Tensor:
+    """Causal sliding-window attention as a loop over query tiles of
+    ``Tq = min(SWA_QTILE, S)``: tile ``t`` attends to the keys in
+    ``[t Tq - W, (t + 1) Tq)`` (the keys padded with W zeros in front so
+    every window is a slice), masked to ``q - W < k <= q``.  Live memory
+    is one [B, H, Tq, W + Tq] score tile."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    W = window
+    Tq = min(SWA_QTILE, S)
+    nt = -(-S // Tq)
+    pad = nt * Tq - S
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    rep = Hq // Hkv
+    kp = F.pad(k, (0, 0, 0, 0, W, 0))
+    vp = F.pad(v, (0, 0, 0, 0, W, 0))
+    scale = float(np.float32(1.0 / math.sqrt(hd)))
+    ar_q = torch.arange(Tq, device=q.device)[:, None]
+    ar_k = torch.arange(W + Tq, device=q.device)[None, :]
+    outs = []
+    for t in range(nt):
+        qr = q[:, t * Tq:(t + 1) * Tq].reshape(B, Tq, Hkv, rep, hd)
+        kw = kp[:, t * Tq: t * Tq + W + Tq]
+        vw = vp[:, t * Tq: t * Tq + W + Tq]
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qr, kw).float() * scale
+        q_pos = t * Tq + ar_q  # absolute positions
+        k_pos = t * Tq - W + ar_k
+        allow = ((k_pos <= q_pos) & (q_pos - k_pos < W) & (k_pos >= 0)
+                 & (q_pos < S))
+        s = torch.where(allow, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ob = torch.einsum("bhrqk,bkhd->bqhrd", p.to(vw.dtype), vw)
+        outs.append(ob.reshape(B, Tq, Hq, hd))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
 # ======================================================================
 # Full attention layer (projections + rope + cache handling)
 # ======================================================================
@@ -220,6 +274,7 @@ def attention_layer(
     x: torch.Tensor,  # [B, S, D]
     positions: torch.Tensor,  # [B, S]
     *,
+    layer_window: int = 0,  # 0 = global; > 0 = sliding window
     cache: Optional[KVCache] = None,  # decode/prefill cache
     mode: str = "train",  # train | prefill | decode
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
@@ -239,37 +294,64 @@ def attention_layer(
         if cache is None:
             raise ValueError("decode needs a KV cache")
         kc, vc, pos = cache
+        w = kc.shape[1]
+        ring = bool(layer_window) and w <= layer_window
         steps = torch.arange(S, device=x.device)
-        kv_pos = torch.arange(kc.shape[1], device=x.device)
+        kv_pos = torch.arange(w, device=x.device)
+        # ring: all filled slots attendable; else the positions written
+        # so far (and, under a window, the last ``layer_window`` of them)
         if pos.ndim == 0:
-            kc.index_copy_(1, pos + steps, k)
-            vc.index_copy_(1, pos + steps, v)
-            mask = kv_pos < pos + S
+            slots = (pos + steps) % w if ring else pos + steps
+            kc.index_copy_(1, slots, k)
+            vc.index_copy_(1, slots, v)
+            end = torch.clamp(pos + S, max=w) if ring else pos + S
+            mask = kv_pos < end
+            if layer_window and not ring:
+                mask = mask & (kv_pos >= pos + S - layer_window)
         else:  # one length a row
             rows = torch.arange(B, device=x.device)[:, None]
-            kc[rows, pos[:, None] + steps] = k
-            vc[rows, pos[:, None] + steps] = v
-            mask = (kv_pos[None, :] < (pos + S)[:, None])[:, None, None, None]
+            slots = pos[:, None] + steps
+            if ring:
+                slots = slots % w
+            kc[rows, slots] = k
+            vc[rows, slots] = v
+            end = torch.clamp(pos + S, max=w) if ring else pos + S
+            mask = kv_pos[None, :] < end[:, None]
+            if layer_window and not ring:
+                mask = mask & (kv_pos[None, :]
+                               >= (pos + S - layer_window)[:, None])
+            mask = mask[:, None, None, None]
         new_cache = KVCache(kc, vc, pos + S)
         out = dense_attention(q, kc, vc, mask)
     else:
         if mode == "prefill" and cache is not None:
-            if cache.k.shape[1] < S:
+            w = cache.k.shape[1]
+            if w >= S:
+                cache.k[:, :S] = k
+                cache.v[:, :S] = v
+            elif layer_window:  # a window cache smaller than the prompt:
+                # its last w keys, position p at slot p % w
+                cache.k.copy_(torch.roll(k[:, S - w:], (S - w) % w, dims=1))
+                cache.v.copy_(torch.roll(v[:, S - w:], (S - w) % w, dims=1))
+            else:
                 raise ValueError(f"a prompt of {S} tokens does not fit a "
-                                 f"cache of {cache.k.shape[1]} positions")
-            cache.k[:, :S] = k
-            cache.v[:, :S] = v
+                                 f"cache of {w} positions")
             new_cache = KVCache(cache.k, cache.v,
                                 torch.full_like(cache.pos, S))
-        out = _prefill_attention(q, k, v, S)
+        out = _prefill_attention(q, k, v, layer_window, S)
 
     out = out.reshape(B, S, cfg.num_heads * hd)
     return out @ p["w_o"], new_cache
 
 
-def _prefill_attention(q, k, v, S: int) -> torch.Tensor:
+def _prefill_attention(q, k, v, layer_window: int, S: int) -> torch.Tensor:
+    if layer_window and S > layer_window:
+        return swa_attention_blocked(q, k, v, layer_window)
     if S > FLASH_THRESHOLD:
         return flash_attention(q, k, v)
     pos = torch.arange(S, device=q.device)
     mask = (pos[None, :] <= pos[:, None])[None, None, None]
+    if layer_window:
+        mask = mask & (pos[:, None] - pos[None, :] < layer_window
+                       )[None, None, None]
     return dense_attention(q, k, v, mask)

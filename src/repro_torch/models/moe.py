@@ -30,9 +30,16 @@ block of the tokens and ``p`` its weight slices
 experts' ranks through ``moe_a2a.apply_moe_a2a``, and the aux loss's
 density and mean probability are summed over every rank and divided by
 the global token count, as GSPMD computes them over the global tokens.
-The mesh path runs forward only (the collectives have no autograd).
+An expert count the model axis does not divide takes the grouped local
+dispatch, as the reference's does: each rank all-gathers the blocks of
+its groups, dispatches whole groups over every expert
+(``moe_a2a.rank_weights`` leaves them whole) and keeps its own block, as
+GSPMD gathers each group.  The
+collectives carry gradients, so both mesh paths train.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -180,6 +187,48 @@ def experts_forward(w_in, w_gate, w_out, act: str,
     return torch.bmm(act_fn(act)(g) * h, w_out)
 
 
+def _local_dispatch(p: dict, cfg: ModelConfig, xg, gate, sel):
+    """The grouped local dispatch: xg [G, Tg, D], gate/sel [G, Tg, k] ->
+    y [G, Tg, D] fp32 (every expert on this process)."""
+    G, Tg, D = xg.shape
+    E = cfg.num_experts
+    C = capacity(cfg, Tg)
+    rank = _pair_ranks(sel, E)
+    buf = _group_dispatch(xg, sel, rank, E, C)
+    out_e = experts_forward(p["w_in"], p["w_gate"], p["w_out"], cfg.act,
+                            buf.view(E, G * C, D))
+    return _group_combine(out_e.view(E, G, C, D), sel, rank, gate, C)
+
+
+def _gathered_dispatch(p: dict, cfg: ModelConfig, mesh, x, gate, sel):
+    """The reference's indivisible case under a mesh: this rank's block x
+    [B_l, S_l, D] of global tokens that ``moe_a2a.rank_block`` cut on
+    every axis it cuts (B_l times the data axes; S_l times the model axis
+    when S_l > 1, else one token a row).  A group (a row when S > 1, every
+    token when S == 1) is gathered from the ranks holding its blocks,
+    dispatched whole, and this rank's block of the result kept."""
+    from repro_torch.models.moe_a2a import token_spec
+    B_l, S_l = x.shape[:2]
+    dp = math.prod(mesh.shape[a] for a in ("pod", "data") if a in mesh.shape)
+    tokens = (B_l * dp, S_l * mesh.shape["model"] if S_l > 1 else 1)
+    bs, ss = token_spec(mesh, *tokens)
+    dim, axes = (1, ss) if tokens[1] > 1 else (0, bs)
+    if axes:
+        group = mesh.group(axes)
+        x, gate, sel = (ex_mod.all_gather(t, group, dim=dim)
+                        for t in (x, gate, sel))
+    B, S, D = x.shape
+    G, Tg = (B, S) if S > 1 else (1, B * S)
+    y = _local_dispatch(p, cfg, x.reshape(G, Tg, D),
+                        gate.reshape(G, Tg, -1), sel.reshape(G, Tg, -1))
+    y = y.reshape(B, S, D)
+    if axes:
+        n = y.shape[dim] // ex_mod.group_size(group)
+        i = mesh.index(axes)
+        y = y.narrow(dim, i * n, n)
+    return y
+
+
 def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D], aux_loss scalar).
@@ -202,19 +251,11 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor
         y = apply_moe_a2a(p, cfg, x, gate.reshape(B, S, k).float(),
                           sel.reshape(B, S, k).to(torch.int32))
         y = y.reshape(G, Tg, D).to(torch.float32)
+    elif mesh is not None and tp > 1:
+        y = _gathered_dispatch(p, cfg, mesh, x, gate.reshape(B, S, k),
+                               sel.reshape(B, S, k))
     else:
-        if mesh is not None and tp > 1:
-            # the reference gathers each group onto its data shard (GSPMD);
-            # a rank here holds a block of a group's tokens
-            raise NotImplementedError(
-                f"{cfg.name}: {E} experts on a model axis of {tp} "
-                f"(indivisible) under a mesh")
-        C = capacity(cfg, Tg)
-        rank = _pair_ranks(sel, E)
-        buf = _group_dispatch(xg, sel, rank, E, C)
-        out_e = experts_forward(p["w_in"], p["w_gate"], p["w_out"], cfg.act,
-                                buf.view(E, G * C, D))
-        y = _group_combine(out_e.view(E, G, C, D), sel, rank, gate, C)
+        y = _local_dispatch(p, cfg, xg, gate, sel)
 
     if cfg.num_shared_experts:
         xt = x.reshape(T, D)

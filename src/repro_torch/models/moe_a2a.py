@@ -17,8 +17,8 @@ batch divides, seq over ``model`` when the sequence divides;
 :func:`rank_block` cuts them) and the expert weights as its ``w_spec``
 (experts over ``model``, and with FSDP dim 1 over the data axes;
 :func:`rank_weights` cuts them from the global arrays).  The collectives
-are ``dist/exchange.py``'s (``all_gather``, ``all_to_all``).  Forward
-only: the collectives have no autograd.
+are ``dist/exchange.py``'s (``all_gather``, ``all_to_all``), which carry
+gradients as ``shard_map``'s do, so the layer trains expert-parallel.
 """
 from __future__ import annotations
 
@@ -90,10 +90,15 @@ def rank_weights(p: dict, cfg: ModelConfig, mesh) -> dict:
     """This rank's slices of a global MoE parameter dict (numpy arrays or
     tensors): ``w_in``/``w_gate``/``w_out`` as the reference's ``w_spec``
     (experts over ``model``; dim 1 over the data axes under FSDP), every
-    other leaf (the router, the shared experts) whole."""
+    other leaf (the router, the shared experts) whole.  An expert count
+    the model axis does not divide takes ``moe.apply_moe``'s grouped
+    local dispatch, which holds every expert: the dict comes back
+    whole."""
     tp = mesh.shape.get("model", 1)
     fsdp = fsdp_axes(mesh, cfg, cfg.d_model)
     out = dict(p)
+    if cfg.num_experts % tp:
+        return out
     for name in ("w_in", "w_gate", "w_out"):
         w = _cut(p[name], 0, tp, mesh.coords.get("model", 0))
         if fsdp:

@@ -1,5 +1,5 @@
-"""Decoder-LM assembly, the dense and MoE stacks (the counterpart of
-``repro.models.transformer``).
+"""Decoder-LM assembly: the dense, MoE, SSM and hybrid stacks (the
+counterpart of ``repro.models.transformer``).
 
 A :class:`ModelPlan` (static, derived from the config) describes the
 layer stacks.  The reference runs a stack of >= ``MIN_SCAN`` layers
@@ -27,15 +27,20 @@ trains.  The serving steps (``serve/engine.py``) run under
 ``torch.no_grad()``, so a model the trainer has unfrozen still serves
 without a graph.
 
-The dense and MoE families are ported (an MoE model is an optional
-stack of ``first_k_dense`` dense layers, then a stack of MoE layers whose
-block runs ``models/moe.py``; the router's aux loss is summed over the
-layers into ``forward``'s and ``lm_loss``'s ``aux``).  :func:`param_axes`
+The families ported: dense (every layer sliding-window when
+``attn_type == "swa"``); MoE (an optional stack of ``first_k_dense``
+dense layers, then a stack of MoE layers whose block runs
+``models/moe.py``; the router's aux loss is summed over the layers into
+``forward``'s and ``lm_loss``'s ``aux``); SSM (mamba2: one stack of SSD
+blocks, ``models/ssm.py``, no attention and no KV cache); hybrid (hymba:
+attention and SSD heads in parallel in each block, global attention in
+layers 0, L/2 and L-1 and a sliding window elsewhere, so the stack is
+never stacked: its layers' caches differ in length).  :func:`param_axes`
 gives the reference's logical-axes tree (``split_params(init_lm(...))[1]``),
 which ``dist/sharding.py::ShardingRules`` resolves and the optimizers'
 ``state_axes`` map.  :func:`build_plan` raises ``NotImplementedError`` for
-SSM, hybrid, sliding-window, MLA, MTP and encoder-decoder configs, naming
-the ROADMAP slice that ports them.
+MLA, MTP and encoder-decoder configs, naming the ROADMAP slice that ports
+them.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, chunked_softmax_xent,
                                        init_embedding, init_mlp, init_norm,
                                        mk, rms_norm)
@@ -66,8 +72,9 @@ MIN_SCAN = 8
 # ======================================================================
 @dataclass(frozen=True)
 class StackPlan:
-    kind: str  # dense | moe
+    kind: str  # dense | moe | ssm | hybrid
     n: int
+    windows: tuple  # per-layer sliding window (0 = global); len == n
     scan: bool  # parameters and caches stacked along a leading layer dim
     d_ff: int
 
@@ -84,8 +91,6 @@ def _unported(cfg: ModelConfig) -> Optional[str]:
         return "encoder-decoder waits for item 14 slice 5"
     if cfg.use_mla or cfg.mtp_depth:
         return "MLA and MTP wait for item 14 slice 4"
-    if cfg.family in ("ssm", "hybrid") or cfg.attn_type == "swa":
-        return "SSM, hybrid and sliding-window attention wait for item 14 slice 3"
     return None
 
 
@@ -94,15 +99,24 @@ def build_plan(cfg: ModelConfig) -> ModelPlan:
     if missing:
         raise NotImplementedError(f"{cfg.name}: {missing} (ROADMAP.md)")
     L = cfg.num_layers
+    if cfg.family == "ssm":
+        return ModelPlan((StackPlan("ssm", L, (0,) * L, L >= MIN_SCAN, 0),))
+    if cfg.family == "hybrid":
+        # global attention on the first, middle and last layer, SWA elsewhere
+        glob = {0, L // 2, L - 1}
+        wins = tuple(0 if i in glob else cfg.sliding_window for i in range(L))
+        return ModelPlan((StackPlan("hybrid", L, wins, False, cfg.d_ff),))
     if cfg.is_moe:
         stacks = []
         if cfg.first_k_dense:
-            stacks.append(StackPlan("dense", cfg.first_k_dense, False,
+            k = cfg.first_k_dense
+            stacks.append(StackPlan("dense", k, (0,) * k, False,
                                     cfg.dense_d_ff or cfg.d_ff))
         m = L - cfg.first_k_dense
-        stacks.append(StackPlan("moe", m, m >= MIN_SCAN, cfg.d_ff))
+        stacks.append(StackPlan("moe", m, (0,) * m, m >= MIN_SCAN, cfg.d_ff))
         return ModelPlan(tuple(stacks))
-    return ModelPlan((StackPlan("dense", L, L >= MIN_SCAN, cfg.d_ff),))
+    wins = (cfg.sliding_window,) * L if cfg.attn_type == "swa" else (0,) * L
+    return ModelPlan((StackPlan("dense", L, wins, L >= MIN_SCAN, cfg.d_ff),))
 
 
 # ======================================================================
@@ -110,12 +124,27 @@ def build_plan(cfg: ModelConfig) -> ModelPlan:
 # ======================================================================
 class LayerCache(NamedTuple):
     kv: Any  # KVCache | None
-    ssm: Any  # None until the SSM slice
+    ssm: Any  # SSMCache | None
 
 
-def init_layer_cache(cfg: ModelConfig, batch: int, s_max: int,
-                     device=None) -> LayerCache:
-    return LayerCache(attn_mod.init_kv_cache(cfg, batch, s_max, device), None)
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int,
+                     window: int, device=None) -> LayerCache:
+    """A layer's cache: a KV cache for attention (``min(s_max, window)``
+    positions under a window), an SSM cache for the SSD."""
+    kv = s = None
+    if kind in ("dense", "moe", "hybrid"):
+        kv = attn_mod.init_kv_cache(cfg, batch, s_max, device, window)
+    if kind in ("ssm", "hybrid"):
+        s = ssm_mod.init_ssm_cache(cfg, batch, device)
+    return LayerCache(kv, s)
+
+
+def _stack_cache(per: LayerCache, n: int) -> LayerCache:
+    """``n`` copies of a layer's cache as ``[n, ...]`` tensors."""
+    def stacked(c):
+        return None if c is None else type(c)(
+            *(t.expand((n,) + t.shape).clone() for t in c))
+    return LayerCache(stacked(per.kv), stacked(per.ssm))
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
@@ -126,13 +155,12 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     caches = []
     for sp in build_plan(cfg).stacks:
         if sp.scan:
-            per = init_layer_cache(cfg, batch, s_max, dev)
-            caches.append(LayerCache(attn_mod.KVCache(
-                *(t.expand((sp.n,) + t.shape).clone() for t in per.kv)),
-                None))
+            caches.append(_stack_cache(init_layer_cache(
+                cfg, sp.kind, batch, s_max, sp.windows[0], dev), sp.n))
         else:
-            caches.append(tuple(init_layer_cache(cfg, batch, s_max, dev)
-                                for _ in range(sp.n)))
+            caches.append(tuple(init_layer_cache(cfg, sp.kind, batch, s_max,
+                                                 w, dev)
+                                for w in sp.windows))
     return tuple(caches)
 
 
@@ -143,34 +171,48 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One decoder layer: pre-norm attention, then the MLP (a dense layer)
-    or the experts (an MoE layer: ``moe`` instead of ``mlp``), each added
-    to the residual stream."""
+_BLOCK_LEAVES = ("norm1", "attn", "norm2", "mlp", "moe", "ssm", "norm_attn",
+                 "norm_ssm")
 
-    def __init__(self, norm1: torch.Tensor, attn: dict, norm2: torch.Tensor,
-                 mlp: Optional[dict] = None, moe: Optional[dict] = None):
+
+class Block(nn.Module):
+    """One decoder layer, its kind given by the leaves it holds (the
+    reference's block dicts): dense ``norm1, attn, norm2, mlp``; MoE
+    ``moe`` instead of ``mlp``; SSM ``norm1, ssm``; hybrid ``norm1, attn,
+    norm2, ssm, norm_attn, norm_ssm, mlp``.  A leaf the kind lacks is
+    ``None``."""
+
+    def __init__(self, norm1: torch.Tensor, attn: Optional[dict] = None,
+                 norm2: Optional[torch.Tensor] = None,
+                 mlp: Optional[dict] = None, moe: Optional[dict] = None,
+                 ssm: Optional[dict] = None,
+                 norm_attn: Optional[torch.Tensor] = None,
+                 norm_ssm: Optional[torch.Tensor] = None):
         super().__init__()
-        self.norm1 = _frozen(norm1)
-        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in attn.items()})
-        self.norm2 = _frozen(norm2)
-        self.mlp = self.moe = None
-        if mlp is not None:
-            self.mlp = nn.ParameterDict(
-                {k: _frozen(v) for k, v in mlp.items()})
-        if moe is not None:
-            self.moe = nn.ParameterDict(
-                {k: _frozen(v) for k, v in moe.items()})
+        given = dict(norm1=norm1, attn=attn, norm2=norm2, mlp=mlp, moe=moe,
+                     ssm=ssm, norm_attn=norm_attn, norm_ssm=norm_ssm)
+        for name in _BLOCK_LEAVES:
+            val = given[name]
+            if val is None:
+                setattr(self, name, None)
+            elif isinstance(val, dict):
+                setattr(self, name, nn.ParameterDict(
+                    {k: _frozen(v) for k, v in val.items()}))
+            else:
+                setattr(self, name, _frozen(val))
 
 
 class LayerParams(NamedTuple):
     """One layer of a :class:`StackedBlocks`: views of its ``[L, ...]``
     parameters, with a :class:`Block`'s attribute names."""
     norm1: torch.Tensor
-    attn: dict
-    norm2: torch.Tensor
+    attn: Optional[dict]
+    norm2: Optional[torch.Tensor]
     mlp: Optional[dict]
     moe: Optional[dict]
+    ssm: Optional[dict]
+    norm_attn: Optional[torch.Tensor]
+    norm_ssm: Optional[torch.Tensor]
 
 
 class StackedBlocks(Block):
@@ -185,17 +227,22 @@ class StackedBlocks(Block):
         return self.norm1.shape[0]
 
     def layers(self) -> list[LayerParams]:
-        n1, n2 = self.norm1.unbind(0), self.norm2.unbind(0)
+        def split(leaf):
+            if leaf is None:
+                return None
+            if isinstance(leaf, nn.ParameterDict):
+                return {k: v.unbind(0) for k, v in leaf.items()}
+            return leaf.unbind(0)
 
-        def split(d):
-            return None if d is None else {k: v.unbind(0)
-                                           for k, v in d.items()}
-
-        def pick(d, i):
-            return None if d is None else {k: v[i] for k, v in d.items()}
-        attn, mlp, moe = split(self.attn), split(self.mlp), split(self.moe)
-        return [LayerParams(n1[i], pick(attn, i), n2[i], pick(mlp, i),
-                            pick(moe, i)) for i in range(len(self))]
+        def pick(parts, i):
+            if parts is None:
+                return None
+            if isinstance(parts, dict):
+                return {k: v[i] for k, v in parts.items()}
+            return parts[i]
+        parts = [split(getattr(self, name)) for name in _BLOCK_LEAVES]
+        return [LayerParams(*(pick(x, i) for x in parts))
+                for i in range(len(self))]
 
     def __iter__(self):
         return iter(self.layers())
@@ -248,11 +295,19 @@ class LM(nn.Module):
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
                 d_ff: int, device=None) -> dict:
     d = cfg.d_model
-    layer = {"norm1": init_norm(d, device),
-             "attn": attn_mod.init_attention(gen, cfg, device),
-             "norm2": init_norm(d, device)}
+    layer = {"norm1": init_norm(d, device)}
+    if kind == "ssm":
+        layer["ssm"] = ssm_mod.init_ssm(gen, cfg, device)
+        return layer
+    layer["attn"] = attn_mod.init_attention(gen, cfg, device)
+    layer["norm2"] = init_norm(d, device)
     if kind == "moe":
         layer["moe"] = moe_mod.init_moe(gen, cfg, device)
+    elif kind == "hybrid":
+        layer["ssm"] = ssm_mod.init_ssm(gen, cfg, device)
+        layer["norm_attn"] = init_norm(d, device)
+        layer["norm_ssm"] = init_norm(d, device)
+        layer["mlp"] = init_mlp(gen, d, d_ff, cfg.gated_mlp, device)
     else:
         layer["mlp"] = init_mlp(gen, d, d_ff, cfg.gated_mlp, device)
     return layer
@@ -387,11 +442,16 @@ def params_to_numpy(model: LM) -> dict:
 def _block_axes(cfg: ModelConfig, kind: str) -> dict:
     """The logical axes of one layer's leaves, as the reference's ``mk``
     calls name them."""
+    if kind == "ssm":
+        return {"norm1": (None,), "ssm": ssm_mod.ssm_axes()}
     attn = {"w_q": ("fsdp", "q_proj"), "w_k": ("fsdp", "kv_proj"),
             "w_v": ("fsdp", "kv_proj"), "w_o": ("q_proj", "fsdp")}
     if cfg.qk_norm:
         attn.update(q_norm=(None,), k_norm=(None,))
     block = {"norm1": (None,), "attn": attn, "norm2": (None,)}
+    if kind == "hybrid":
+        block.update(ssm=ssm_mod.ssm_axes(), norm_attn=(None,),
+                     norm_ssm=(None,))
     if kind == "moe":
         expert = ("experts", "fsdp", None)
         moe = {"router": (None, None), "w_in": expert, "w_gate": expert,
@@ -444,21 +504,33 @@ def _map_tree(fn, tree):
 # Apply
 # ======================================================================
 def apply_block(p, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, mode: str, cache: LayerCache
+                positions: torch.Tensor, mode: str, cache: LayerCache,
+                window: int = 0
                 ) -> tuple[torch.Tensor, LayerCache, torch.Tensor]:
-    """One layer; ``p`` is a :class:`Block` or a :class:`LayerParams`.
-    Returns (x, new_cache, aux_loss): the router's loss of an MoE layer,
-    0 for a dense one."""
+    """One layer; ``p`` is a :class:`Block` or a :class:`LayerParams`,
+    ``window`` its attention's sliding window (0: global).  Returns (x,
+    new_cache, aux_loss): the router's loss of an MoE layer, else 0."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.norm1, cfg.norm_eps)
-    a_out, new_kv = attn_mod.attention_layer(p.attn, cfg, h, positions,
-                                             cache=cache.kv, mode=mode)
+    if p.attn is None:  # ssm
+        y, new_ssm = ssm_mod.apply_ssm(p.ssm, cfg, h, cache.ssm, mode)
+        return x + y, LayerCache(cache.kv, new_ssm), aux
+    a_out, new_kv = attn_mod.attention_layer(
+        p.attn, cfg, h, positions, layer_window=window, cache=cache.kv,
+        mode=mode)
+    if p.ssm is not None:  # hybrid: attention and SSD heads in parallel
+        s_out, new_ssm = ssm_mod.apply_ssm(p.ssm, cfg, h, cache.ssm, mode)
+        y = (rms_norm(a_out, p.norm_attn, cfg.norm_eps)
+             + rms_norm(s_out, p.norm_ssm, cfg.norm_eps)) * 0.5
+        x = x + y
+        x = x + apply_mlp(p.mlp, rms_norm(x, p.norm2, cfg.norm_eps), cfg.act)
+        return x, LayerCache(new_kv, new_ssm), aux
     x = x + a_out
     h2 = rms_norm(x, p.norm2, cfg.norm_eps)
     if p.moe is not None:
         y, aux = moe_mod.apply_moe(p.moe, cfg, h2)
     else:
         y = apply_mlp(p.mlp, h2, cfg.act)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, LayerCache(new_kv, cache.ssm), aux
 
 
@@ -494,29 +566,40 @@ def apply_stacks(params: LM, cfg: ModelConfig, x: torch.Tensor,
     for si, (sp, blocks) in enumerate(zip(plan.stacks, params.stacks)):
         cache_s = caches[si] if caches is not None else None
         if cache_s is None:
-            def layer_fn(xc, pl):
+            def layer_fn(xc, pl, window):
                 xo, _, aux = apply_block(pl, cfg, xc, positions, mode,
-                                         LayerCache(None, None))
+                                         LayerCache(None, None), window)
                 return xo, aux
             layer_fn = _remat_wrap(layer_fn, cfg, mode)
-            for blk in blocks:
-                x, aux = layer_fn(x, blk)
+            for blk, window in zip(blocks, sp.windows):
+                x, aux = layer_fn(x, blk, window)
                 aux_total = aux_total + aux
             new_caches.append(None)
         elif sp.scan:  # layer li's cache is row li of the stacked tensors
-            k, v, pos = cache_s.kv
+            kv, sc = cache_s
             new_pos = []
             for li, blk in enumerate(blocks):
-                cl = LayerCache(attn_mod.KVCache(k[li], v[li], pos[li]), None)
-                x, nc, aux = apply_block(blk, cfg, x, positions, mode, cl)
+                cl = LayerCache(
+                    None if kv is None else attn_mod.KVCache(
+                        kv.k[li], kv.v[li], kv.pos[li]),
+                    None if sc is None else ssm_mod.SSMCache(
+                        sc.state[li], sc.conv[li]))
+                x, nc, aux = apply_block(blk, cfg, x, positions, mode, cl,
+                                         sp.windows[li])
                 aux_total = aux_total + aux
-                new_pos.append(nc.kv.pos)  # K/V were written in place
+                if kv is not None:
+                    new_pos.append(nc.kv.pos)  # K/V were written in place
+                if sc is not None:  # the SSD returns new tensors
+                    sc.state[li].copy_(nc.ssm.state)
+                    sc.conv[li].copy_(nc.ssm.conv)
             new_caches.append(LayerCache(
-                attn_mod.KVCache(k, v, torch.stack(new_pos)), cache_s.ssm))
+                None if kv is None else kv._replace(
+                    pos=torch.stack(new_pos)), sc))
         else:
             ncs = []
-            for blk, cl in zip(blocks, cache_s):
-                x, nc, aux = apply_block(blk, cfg, x, positions, mode, cl)
+            for blk, cl, window in zip(blocks, cache_s, sp.windows):
+                x, nc, aux = apply_block(blk, cfg, x, positions, mode, cl,
+                                         window)
                 aux_total = aux_total + aux
                 ncs.append(nc)
             new_caches.append(tuple(ncs))

@@ -8,7 +8,11 @@ continuous-batching manager (fixed slot count, greedy refill) that serves
 mixed-length traffic.  The slot server keeps one cache position per slot
 (a ``[num_slots]`` ``pos``), so a request admitted while another slot is
 mid-decode gets the tokens ``generate`` gives for its prompt alone.  The
-reference keeps one shared position and does not (ROADMAP.md §3).
+reference keeps one shared position and does not (ROADMAP.md §3).  A
+slot's row is every cache leaf's row: K/V (a sliding-window layer's ring
+is shorter than a global layer's cache), and the SSD's state and conv
+rows; an SSM model has no KV cache and no position (the SSD needs
+none).
 
 Serving builds no autograd graph: the steps, ``generate`` and the slot
 server run under ``torch.no_grad()``, so a model the trainer has
@@ -142,21 +146,33 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     return decode
 
 
-def _kv_caches(caches):
-    """``(stacked, KVCache)`` for every KV cache of the tree; a stacked
-    cache's tensors carry a leading layer dim before the batch dim."""
+def _layer_caches(caches):
+    """``(stacked, LayerCache)`` for every layer cache of the tree; a
+    stacked cache's tensors carry a leading layer dim before the batch
+    dim."""
     for stack in caches:
         if isinstance(stack, LayerCache):
-            yield True, stack.kv
+            yield True, stack
         else:
             for lc in stack:
-                yield False, lc.kv
+                yield False, lc
+
+
+def _kv_caches(caches):
+    """``(stacked, KVCache)`` for every KV cache of the tree."""
+    for stacked, lc in _layer_caches(caches):
+        if lc.kv is not None:
+            yield stacked, lc.kv
 
 
 def _cache_pos(caches) -> torch.Tensor:
-    """Current length (scalar, or one a row): the first layer's."""
-    stacked, kv = next(_kv_caches(caches))
-    return kv.pos[0] if stacked else kv.pos
+    """Current length (scalar, or one a row): the first KV cache's, or 0
+    when there is none (an SSM model's decode needs no position, as the
+    reference's ``_cache_pos`` returns 0)."""
+    for stacked, kv in _kv_caches(caches):
+        return kv.pos[0] if stacked else kv.pos
+    _, lc = next(_layer_caches(caches))
+    return torch.zeros((), dtype=torch.int32, device=lc.ssm.state.device)
 
 
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, device=None):
@@ -282,25 +298,32 @@ class SlotServer:
 
 def _write_slot(full_tree, one_tree, slot: int) -> None:
     """Copy a batch-of-1 cache into row ``slot`` of the slot server's
-    caches, in place: every K/V tensor's row and the slot's position
-    (the batch dim follows a stacked cache's layer dim)."""
-    for (stacked, full), (_, one) in zip(_kv_caches(full_tree),
-                                         _kv_caches(one_tree)):
+    caches, in place: every K/V tensor's row and the slot's position, the
+    SSD state's and conv's rows (the batch dim follows a stacked cache's
+    layer dim)."""
+    for (stacked, full), (_, one) in zip(_layer_caches(full_tree),
+                                         _layer_caches(one_tree)):
         b = 1 if stacked else 0
-        full.k.select(b, slot).copy_(one.k.select(b, 0))
-        full.v.select(b, slot).copy_(one.v.select(b, 0))
-        full.pos.select(b, slot).copy_(one.pos)
+        if full.kv is not None:
+            full.kv.k.select(b, slot).copy_(one.kv.k.select(b, 0))
+            full.kv.v.select(b, slot).copy_(one.kv.v.select(b, 0))
+            full.kv.pos.select(b, slot).copy_(one.kv.pos)
+        if full.ssm is not None:
+            for f, o in zip(full.ssm, one.ssm):
+                f.select(b, slot).copy_(o.select(b, 0))
 
 
 def _slot_positions(caches, num_slots: int):
-    """The cache tree with one position a slot: ``pos`` becomes
-    ``[L, num_slots]`` in a stacked cache, ``[num_slots]`` in a layer's."""
-    def per_slot(kv):
-        return kv._replace(pos=torch.zeros(kv.pos.shape + (num_slots,),
-                                           dtype=torch.int32,
-                                           device=kv.pos.device))
+    """The cache tree with one position a slot: a KV cache's ``pos``
+    becomes ``[L, num_slots]`` in a stacked cache, ``[num_slots]`` in a
+    layer's."""
+    def per_slot(lc):
+        if lc.kv is None:
+            return lc
+        return lc._replace(kv=lc.kv._replace(pos=torch.zeros(
+            lc.kv.pos.shape + (num_slots,), dtype=torch.int32,
+            device=lc.kv.pos.device)))
     return tuple(
-        LayerCache(per_slot(stack.kv), stack.ssm)
-        if isinstance(stack, LayerCache)
-        else tuple(LayerCache(per_slot(lc.kv), lc.ssm) for lc in stack)
+        per_slot(stack) if isinstance(stack, LayerCache)
+        else tuple(per_slot(lc) for lc in stack)
         for stack in caches)

@@ -1,13 +1,17 @@
 """The JAX package's side of ``tests/test_torch_moe_a2a.py``: its
-``apply_moe`` under ``("data", "model")`` meshes of 4 CPU devices (the
-``shard_map`` all-to-all path), each case's output and aux into one
-``.npz``.
+``apply_moe`` under ``("data", "model")`` meshes of CPU devices (the
+``shard_map`` all-to-all path when the model axis divides the experts,
+GSPMD's grouped dispatch when it does not), each case's output, aux and
+gradients into one ``.npz``.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         PYTHONPATH=src python tests/_moe_jax_ref.py IN.npz OUT.npz
 
 ``IN.npz`` holds, for case ``i``, ``shape{i}`` (the mesh's two sizes),
-and ``x{i}`` and the layer's leaves ``{leaf}{i}`` as bf16 bits (uint16).
+and ``x{i}`` and the layer's leaves ``{leaf}{i}`` as bf16 bits (uint16),
+and ``ct{i}`` (fp32), the cotangent of the output.  The gradients are
+``jax.grad`` of ``sum(y * ct) + aux`` with respect to the leaves and x,
+``g_{leaf}{i}`` and ``g_x{i}`` as fp32.
 """
 import sys
 
@@ -36,11 +40,20 @@ def main(src: str, dst: str) -> None:
         mesh = Mesh(np.array(jax.devices()[:d * m]).reshape(d, m),
                     ("data", "model"))
         p = {name: bf16(name) for name in LEAVES}
+        ct = jnp.asarray(cases[f"ct{i}"])
+
+        def loss(p, x):
+            y, aux = moe.apply_moe(p, cfg, x)
+            return jnp.sum(y.astype(jnp.float32) * ct) + aux
         with use_mesh_rules(mesh):
             y, aux = jax.jit(lambda p, x: moe.apply_moe(p, cfg, x))(
                 p, bf16("x"))
+            gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, bf16("x"))
         out[f"y{i}"] = np.asarray(y.astype(jnp.float32))
         out[f"aux{i}"] = np.asarray(aux)
+        out[f"g_x{i}"] = np.asarray(gx.astype(jnp.float32))
+        for name in LEAVES:
+            out[f"g_{name}{i}"] = np.asarray(gp[name].astype(jnp.float32))
         i += 1
     np.savez(dst, **out)
 

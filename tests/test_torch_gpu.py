@@ -9,7 +9,10 @@ must leave its primary's tensors untouched, a small serving plane
 (CC + SSSP, one edge delta) against its CPU run, and the dense LM: the
 reduced archs' logits against the CPU, the slot server against
 ``generate``, the flash prefill against the dense path, and a cache
-checkpoint's round trip.
+checkpoint's round trip; the MoE layer; and the SSM and hybrid families:
+softplus and the chunked SSD with its gradients against the CPU, the
+reduced mamba2 and hymba logits against the CPU, and their slot servers
+(SSD states, rings past the window) against ``generate``.
 
 Every test carries the ``gpu`` marker and skips on a host without a CUDA
 card (decided in the ``cuda`` fixture, not at import).  On a machine with
@@ -756,3 +759,101 @@ def test_moe_a2a_one_nccl_rank(cuda, tmp_path):
         dist.destroy_process_group()
     assert out["cuda"].device.type == "cuda"
     assert _share_within(out["cpu"], out["cuda"], 5.0e-2) >= 0.9
+
+
+# ------------------------------------------------------ SSM and hybrid
+SSM_CASES = [("mamba2-780m", 2), ("hymba-1.5b", 4)]
+
+
+def test_softplus_on_card_matches_cpu(cuda):
+    """``models/ssm.py::softplus`` on the card (the device's ``expf`` and
+    ``log1pf``, as XLA calls them there) against the CPU's (XLA's CPU
+    polynomials spelled out): forward and gradient within 8 float32 ulps
+    of each value (the same libm formula on the CPU is within 2.1 and 2.7
+    ulps of the spelling on these inputs)."""
+    from repro_torch.models import ssm
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.concatenate([
+        np.linspace(-30, 40, 20001), rng.standard_normal(20000) * 8
+    ]).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        t = x.to(dev).clone().requires_grad_()
+        y = ssm.softplus(t)
+        y.sum().backward()
+        out.append((y.detach().cpu(), t.grad.cpu()))
+    (yc, gc), (yg, gg) = out
+    for c, g in ((yc, yg), (gc, gg)):
+        assert ((c - g).abs() <= 8 * 2.0 ** -23 * c.abs()).all()
+
+
+def test_ssd_chunked_on_card_matches_cpu(cuda):
+    """The chunked scan in fp32 (4 chunks of 16) and its gradients: the
+    card against the CPU within 1e-5 of each max (tests/test_torch_ssm.py's
+    tolerance against the JAX package)."""
+    from repro_torch.models import ssm
+    rng = np.random.default_rng(0)
+    shapes = ((2, 64, 4, 8), (2, 64, 4), (4,), (2, 64, 8), (2, 64, 8))
+    args = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            for sh in shapes]
+    args[1] = torch.nn.functional.softplus(args[1])
+    args[2] = -args[2].abs() - 0.5
+    ct = torch.from_numpy(rng.standard_normal(shapes[0]).astype(np.float32))
+    got = []
+    for dev in ("cpu", cuda):
+        leaves = [a.to(dev).clone().requires_grad_() for a in args]
+        y, s = ssm.ssd_chunked(*leaves, 16)
+        torch.sum(y * ct.to(dev)).backward()
+        got.append([y.detach().cpu(), s.detach().cpu()] + [
+            t.grad.cpu() for t in leaves])
+    for a, b in zip(*got):
+        assert (a - b).abs().max() <= 1e-5 * a.abs().max()
+
+
+@pytest.mark.parametrize("arch,layers", SSM_CASES)
+def test_ssm_logits_on_card_match_cpu(cuda, arch, layers):
+    """Train and prefill logits of reduced mamba2 and hymba (4 layers:
+    layer 1 windowed) over 40 tokens, past hymba's window of 32: the card
+    against the CPU within chip_smoke.py's ``LM_CARD_TOL`` of max|logit|."""
+    from repro_torch.models import transformer as T
+    cfg, host, card = _lm(cuda, arch, num_layers=layers)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    for mode in ("train", "prefill"):
+        hc = T.init_cache(cfg, 2, 48, "cpu") if mode == "prefill" else None
+        gc = T.init_cache(cfg, 2, 48, cuda) if mode == "prefill" else None
+        lh = T.forward(host, cfg, tokens, mode=mode, caches=hc)[0].float()
+        lg = T.forward(card, cfg, tokens.to(cuda), mode=mode,
+                       caches=gc)[0].float().cpu()
+        assert (lg - lh).abs().max() <= 5.0e-2 * lh.abs().max(), mode
+
+
+@pytest.mark.parametrize("arch,layers", SSM_CASES)
+def test_ssm_slot_server_on_card_matches_generate(cuda, arch, layers):
+    """5 requests on 2 slots, prompts of 9-40 tokens (hymba's ring rolled
+    for two), staggered: each equals the card's ``generate`` of its prompt
+    alone, or differs first at a bf16 near tie under the card's full
+    forward."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    cfg, _, card = _lm(cuda, arch, num_layers=layers)
+    rng = np.random.default_rng(3)
+    reqs = [SE.Request(rid, rng.integers(0, cfg.vocab_size, n)
+                       .astype(np.int32), m)
+            for rid, (n, m) in enumerate(zip([12, 9, 40, 10, 36],
+                                             [5, 3, 7, 4, 6]))]
+    server = SE.SlotServer(card, cfg, num_slots=2, s_max=55)
+    for r in reqs:
+        server.submit(r)
+    done = server.run()
+    for r in reqs:
+        got = done[r.rid]
+        alone = SE.generate(card, cfg, r.prompt[None], r.max_new)[0]
+        diff = np.flatnonzero(alone[len(r.prompt):] != got)
+        if diff.size:
+            i = int(diff[0])
+            prefix = np.concatenate([r.prompt, got[:i]])[None]
+            last = T.forward(card, cfg, torch.as_tensor(prefix, device=cuda)
+                             )[0][0, -1].float().cpu()
+            assert abs(float(last[got[i]] - last[alone[len(r.prompt) + i]])
+                       ) < LM_GAP, (r.rid, i)

@@ -253,6 +253,12 @@ def test_port_runs_without_jax_or_repro(tmp_path):
         "'--reduced', '--steps', '2', '--device', 'cpu'])\n"
         "repro_torch.launch.serve.main(['--arch', 'phi3.5-moe-42b-a6.6b', "
         "'--device', 'cpu', '--requests', '3'])\n"
+        "import repro_torch.models.ssm\n"
+        "for arch in ('mamba2-780m', 'hymba-1.5b'):\n"
+        "    repro_torch.launch.train.main(['--arch', arch, '--reduced', "
+        "'--steps', '2', '--device', 'cpu'])\n"
+        "    repro_torch.launch.serve.main(['--arch', arch, '--device', "
+        "'cpu', '--requests', '3'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -285,7 +291,7 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert PORT / "launch" / "serve.py" in files
     for new in ("launch/train.py", "train/trainer.py", "train/optimizer.py",
                 "data/pipeline.py", "models/moe.py", "models/moe_a2a.py",
-                "dist/sharding.py"):
+                "dist/sharding.py", "models/ssm.py"):
         assert PORT / new in files
     for f in files:
         roots = set(_imported_roots(f))

@@ -1,5 +1,6 @@
-"""Port parity for the dense LM: configs, layers, GQA attention (dense,
-decode over a cache, flash prefill) and the transformer's ``forward``.
+"""Port parity for the LM: configs, layers, GQA attention (dense, decode
+over a cache, flash prefill, the blocked sliding window and its ring
+cache) and the transformer's ``forward`` (dense, SSM and hybrid).
 
 The same seeded inputs go through the JAX package (jitted, on the CPU)
 and the port (``device="cpu"``); the weights are the JAX package's
@@ -38,9 +39,9 @@ from _lm_cases import J_ATTN, J_FWD, carried, f32, rel_err, tt  # noqa: E402
 
 SEEDS = range(5)
 DENSE = ["qwen3-4b", "glm4-9b", "chatglm3-6b", "granite-20b", "chameleon-34b"]
-PORTED = DENSE + ["phi3.5-moe-42b-a6.6b"]  # the MoE family: test_torch_moe.py
-UNPORTED = {"deepseek-v3-671b": "slice 4", "hymba-1.5b": "slice 3",
-            "mamba2-780m": "slice 3", "whisper-medium": "slice 5"}
+# the MoE family: test_torch_moe.py; the SSD layer: test_torch_ssm.py
+PORTED = DENSE + ["phi3.5-moe-42b-a6.6b", "mamba2-780m", "hymba-1.5b"]
+UNPORTED = {"deepseek-v3-671b": "slice 4", "whisper-medium": "slice 5"}
 
 
 def bf16(rng, shape, scale=1.0):
@@ -73,8 +74,8 @@ def test_build_plan_matches_jax(arch):
         jsp, = JT.build_plan(jget(arch) if cfg.num_layers > 2
                              else jget(arch).reduced()).stacks
         sp, = T.build_plan(cfg).stacks
-        assert (sp.kind, sp.n, sp.scan, sp.d_ff) == (jsp.kind, jsp.n,
-                                                    jsp.scan, jsp.d_ff)
+        assert (sp.kind, sp.n, sp.windows, sp.scan, sp.d_ff) == (
+            jsp.kind, jsp.n, jsp.windows, jsp.scan, jsp.d_ff)
 
 
 def _jax_leaves(cfg) -> dict:
@@ -97,7 +98,12 @@ def test_meta_init_has_reference_shapes(arch):
     assert {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
             for k, t in named.items()} == _jax_leaves(jget(arch))
     norms = sum(t.numel() for t in named.values() if t.dtype == torch.float32)
-    assert sum(t.numel() for t in named.values()) - norms == cfg.param_count()
+    matrices = sum(t.numel() for t in named.values()) - norms
+    if cfg.ssm_state:  # the reference's count takes the conv over d_inner
+        # channels (its leaf has d_inner + 2 N) and A, D as 2 H (fp32 here)
+        conv = cfg.num_layers * cfg.ssm_conv_width * 2 * cfg.ssm_state
+        matrices += 2 * cfg.num_layers * cfg.ssm_heads - conv
+    assert matrices == cfg.param_count()
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
@@ -221,6 +227,86 @@ def test_flash_path_matches_jax_and_dense(seed):
     assert rel_err(jflash, flash) <= 9.6e-4
 
 
+# --------------------------------------------------------- sliding window
+J_SWA_ATTN = jax.jit(JA.attention_layer,
+                     static_argnames=("cfg", "mode", "layer_window"))
+
+
+@pytest.mark.parametrize("S,window", [(600, 200), (40, 32)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_swa_attention_blocked_matches_jax(seed, S, window):
+    """S > window: query tiles of 256 (S = 600: three, the last padded)
+    over W + 256 keys against the JAX function, and against the port's
+    dense path under the window's mask (seeds 0-4: within 2.8e-4 and
+    3.2e-7 of max|out|; S = 40, one tile, bitwise)."""
+    rng = np.random.default_rng(seed)
+    q = bf16(rng, (1, S, 4, 16))
+    k, v = bf16(rng, (1, S, 2, 16)), bf16(rng, (1, S, 2, 16))
+    j = jax.jit(JA.swa_attention_blocked, static_argnums=3)(q, k, v, window)
+    t = TA.swa_attention_blocked(tt(q), tt(k), tt(v), window)
+    assert t.shape == (1, S, 4, 16) and t.dtype == torch.bfloat16
+    assert rel_err(j, t) <= 1.1e-3
+    pos = torch.arange(S)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :]
+                                             < window)
+    dense = TA.dense_attention(tt(q), tt(k), tt(v), mask[None, None, None])
+    assert rel_err(dense, t) <= 1.3e-6
+
+
+def _hymba_attn(seed):
+    cfg, tcfg, params, model = carried("hymba-1.5b", seed, num_layers=4)
+    assert T.build_plan(tcfg).stacks[0].windows[1] == tcfg.sliding_window
+    return (cfg, tcfg, params["stacks"][0][1]["attn"],
+            model.stacks[0][1].attn)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ring_decode_per_row_positions_match_jax(seed):
+    """Two rows prefilled alone to 40 and 23 tokens (a ring of 32: the
+    first rolled, the second not yet full), written into one [2] cache
+    and decoded 12 steps past the window at their own positions: each
+    row's output and ring against the JAX layer decoding that row alone
+    at its scalar position (seeds 0-4: bitwise)."""
+    cfg, tcfg, p, tp = _hymba_attn(seed)
+    W, s_max = tcfg.sliding_window, 64
+    rng = np.random.default_rng(seed)
+    lens = (40, 23)
+    xs = [bf16(rng, (1, n + 12, cfg.d_model)) for n in lens]
+    ring = TA.init_kv_cache(tcfg, 2, s_max, "cpu", window=W)
+    assert ring.k.shape[1] == W
+    ring = ring._replace(pos=torch.zeros(2, dtype=torch.int32))
+    jcs = []
+    for row, (n, x) in enumerate(zip(lens, xs)):
+        pos = np.arange(n, dtype=np.int32)[None]
+        jc = JA.init_kv_cache(cfg, 1, s_max, W)
+        _, jc = J_SWA_ATTN(p, cfg, x[:, :n], pos, layer_window=W, cache=jc,
+                           mode="prefill")
+        _, one = TA.attention_layer(
+            tp, tcfg, tt(x[:, :n]), torch.from_numpy(pos.copy()),
+            layer_window=W, cache=TA.init_kv_cache(tcfg, 1, s_max, "cpu",
+                                                  window=W), mode="prefill")
+        assert np.array_equal(f32(jc.k), f32(one.k))
+        ring.k[row], ring.v[row] = one.k[0], one.v[0]
+        ring.pos[row] = one.pos
+        jcs.append(jc)
+    for step in range(12):
+        xt = torch.cat([tt(x[:, n + step:n + step + 1])
+                        for n, x in zip(lens, xs)])
+        positions = ring.pos[:, None].clone()
+        tout, ring = TA.attention_layer(tp, tcfg, xt, positions,
+                                        layer_window=W, cache=ring,
+                                        mode="decode")
+        for row, (n, x) in enumerate(zip(lens, xs)):
+            jout, jcs[row] = J_SWA_ATTN(
+                p, cfg, x[:, n + step:n + step + 1],
+                np.array([[n + step]], np.int32), layer_window=W,
+                cache=jcs[row], mode="decode")
+            assert np.array_equal(f32(jout[0]), f32(tout[row]))
+            assert np.array_equal(f32(jcs[row].k[0]), f32(ring.k[row]))
+            assert int(jcs[row].pos) == int(ring.pos[row])
+    assert ring.pos.tolist() == [52, 35]
+
+
 # ---------------------------------------------------------------- forward
 FORWARD_CASES = [(a, {}) for a in DENSE] + [("qwen3-4b", {"num_layers": 8})]
 
@@ -264,6 +350,44 @@ def _leaves(tree):
     elif tree is not None:
         for x in tree:
             yield from _leaves(x)
+
+
+SSM_FORWARD = [("mamba2-780m", {}), ("mamba2-780m", {"num_layers": 8}),
+               ("hymba-1.5b", {}), ("hymba-1.5b", {"num_layers": 4})]
+
+
+@pytest.mark.parametrize("arch,kw", SSM_FORWARD, ids=[
+    "mamba2", "mamba2-8layers", "hymba", "hymba-4layers"])
+def test_ssm_hybrid_forward_matches_jax(arch, kw):
+    """The SSM and hybrid families reduced: train and prefill logits over
+    40 tokens (hymba's window is 32: with 4 layers, layer 1 runs the
+    blocked window and its ring keeps the last 32 keys, rolled), the
+    prefill caches (a ring and 3 global K/V, SSD states, conv rows), and
+    8 layers of mamba2 take the stacked layout (seeds 0-4: the logits
+    within 6.4e-2 of max|logit|, every cache 5.0e-2 of its max, both at 4
+    layers of hymba; 2.5e-2 and 1.8e-2 in the other cases)."""
+    B, S = 2, 40
+    cfg, tcfg, params, model = carried(arch, 0, **kw)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    jl, _ = J_FWD(params, cfg, tokens, "train", None)
+    tl, _, aux, _ = T.forward(model, tcfg, torch.from_numpy(tokens))
+    assert tl.dtype == torch.bfloat16 and float(aux) == 0.0
+    assert rel_err(jl, tl) <= 1.3e-1
+    jc = JT.init_cache(cfg, B, S + 8)
+    tc = T.init_cache(tcfg, B, S + 8, "cpu")
+    jl, jc = J_FWD(params, cfg, tokens, "prefill", jc)
+    tl, tc, _, _ = T.forward(model, tcfg, torch.from_numpy(tokens),
+                             mode="prefill", caches=tc)
+    assert rel_err(jl, tl) <= 1.3e-1
+    jleaves, tleaves = jax.tree.leaves(jc), list(_leaves(tc))
+    assert len(jleaves) == len(tleaves)
+    for a, b in zip(jleaves, tleaves):
+        assert tuple(a.shape) == tuple(b.shape)
+        if a.ndim > 1:  # K/V, SSD state, conv rows
+            assert rel_err(a, b) <= 1.0e-1
+        else:  # pos
+            assert np.array_equal(np.asarray(a), b.numpy())
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -1,7 +1,9 @@
 """Port parity for LM serving: ``generate`` against the JAX package's,
 the slot server against the port's ``generate`` of each prompt alone,
 the per-row cache position, cache checkpoints written by the JAX
-package, and the ``serve`` launcher.
+package, and the ``serve`` launcher; for the dense family and for the
+SSM and hybrid ones (mamba2: SSD states and conv rows a slot, no KV
+cache; hymba: a ring of 32 keys beside global caches).
 
 Token sequences are held by the near-tie rules of ``tests/test_serve.py``
 (``_lm_cases.teacher_forced``, ``_lm_cases.same_or_near_tie``).  The
@@ -196,3 +198,130 @@ def test_serve_launcher_on_cpu(capsys):
     reqs = [ln for ln in out.splitlines() if ln.startswith("  req ")]
     assert len(reqs) == 6 and all("(12 tokens)" in ln for ln in reqs)
     assert "72 tokens in" in out
+
+
+# ---------------------------------------------------- the SSM and hybrid
+SSM_ARCHS = [("mamba2-780m", {}), ("mamba2-780m", {"num_layers": 8}),
+             ("hymba-1.5b", {"num_layers": 4})]
+SSM_IDS = ["mamba2", "mamba2-8layers", "hymba-4layers"]
+
+
+def _decode_logits(model, cfg, out: np.ndarray, S: int) -> np.ndarray:
+    """The logits ``generate``'s steps saw for ``out`` [B, S + new]: a
+    prefill of the prompt, then one decode step a generated token."""
+    prefill, decode = E.make_prefill_step(cfg), E.make_decode_step(cfg)
+    caches = T.init_cache(cfg, out.shape[0], out.shape[1], "cpu")
+    tok = torch.from_numpy(out)
+    logits, caches = prefill(model, {"tokens": tok[:, :S]}, caches)
+    got = [logits[:, -1]]
+    for t in range(S, out.shape[1] - 1):
+        logits, caches = decode(model, tok[:, t:t + 1], caches)
+        got.append(logits[:, -1])
+    return f32(torch.stack(got, dim=1))
+
+
+@pytest.mark.parametrize("arch,kw", SSM_ARCHS, ids=SSM_IDS)
+def test_ssm_hybrid_generate_matches_jax(arch, kw):
+    """Prompts of 36 tokens (past hymba's window of 32: its ring rolled),
+    6 new: the tokens against the JAX package's ``generate`` (equal, or a
+    bf16 near tie at the first difference), and the logits each step saw
+    against the full forward's on the same tokens (the recurrent decode
+    and the ring against the chunked scan and the blocked window; seeds
+    0-4: within 5.1e-2 of max|logit|)."""
+    B, S, new = 2, 36, 6
+    cfg, tcfg, params, model = carried(arch, 0, **kw)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    jout = JE.generate(params, cfg, jnp.asarray(prompt), max_new=new)
+    tout = E.generate(model, tcfg, prompt, max_new=new)
+    assert tout.shape == (B, S + new) and np.array_equal(tout[:, :S], prompt)
+    same_or_near_tie(jax_logits(params, cfg), jout, tout, S)
+    full = port_logits(model, tcfg)(tout)[:, S - 1:-1]
+    steps = _decode_logits(model, tcfg, tout, S)
+    assert float(np.abs(full - steps).max() / np.abs(full).max()) <= 1.0e-1
+
+
+@pytest.mark.parametrize("arch,kw", SSM_ARCHS, ids=SSM_IDS)
+def test_ssm_hybrid_slot_server_matches_generate_alone(arch, kw):
+    """5 requests on 2 slots (prompts of 9-40 tokens: hymba's ring rolled
+    for two), refilled mid-decode: each request's SSD state and conv rows,
+    ring and global K/V are its slot's row, so it gets what ``generate``
+    gives its prompt alone."""
+    _, tcfg, _, model = carried(arch, 0, **kw)
+    rng = np.random.default_rng(3)
+    lens, news = [12, 9, 40, 10, 36], [5, 3, 7, 4, 6]
+    reqs = [E.Request(rid, rng.integers(0, tcfg.vocab_size, n)
+                      .astype(np.int32), m)
+            for rid, (n, m) in enumerate(zip(lens, news))]
+    server = E.SlotServer(model, tcfg, num_slots=2, s_max=40 + 7 + 8)
+    for r in reqs:
+        server.submit(r)
+    done = server.run()
+    assert sorted(done) == list(range(5))
+    logits = port_logits(model, tcfg)
+    for r in reqs:
+        got = done[r.rid]
+        assert len(got) == r.max_new
+        alone = E.generate(model, tcfg, r.prompt[None], max_new=r.max_new)
+        same_or_near_tie(logits, alone,
+                         np.concatenate([r.prompt, got])[None], len(r.prompt))
+
+
+@pytest.mark.parametrize("arch,kw", SSM_ARCHS, ids=SSM_IDS)
+def test_ssm_hybrid_rows_decode_as_alone(arch, kw):
+    """Prompts of 40 and 7 tokens prefilled alone and written into their
+    slots (state, conv rows, ring, K/V and position): one decode step of
+    both rows gives each the logits of that row decoded alone (seeds 0-4:
+    bitwise), and an SSM model's position is 0 (it has no KV cache)."""
+    _, tcfg, _, model = carried(arch, 0, **kw)
+    rng = np.random.default_rng(0)
+    prefill, decode = E.make_prefill_step(tcfg), E.make_decode_step(tcfg)
+    caches = E._slot_positions(T.init_cache(tcfg, 2, 48, "cpu"), 2)
+    alone = []
+    for slot, n in enumerate((40, 7)):
+        one = T.init_cache(tcfg, 1, 48, "cpu")
+        _, one = prefill(model, {"tokens": torch.as_tensor(
+            rng.integers(0, tcfg.vocab_size, n))[None]}, one)
+        E._write_slot(caches, one, slot)
+        alone.append(decode(model, torch.tensor([[5 + slot]]), one)[0][0])
+    both, caches = decode(model, torch.tensor([[5], [6]]), caches)
+    assert torch.equal(both[0], alone[0]) and torch.equal(both[1], alone[1])
+    pos = E._cache_pos(caches)
+    assert pos.tolist() == ([41, 8] if tcfg.num_heads else 0)
+
+
+@pytest.mark.parametrize("arch,kw", SSM_ARCHS, ids=SSM_IDS)
+def test_ssm_cache_checkpoint_restores_as_port_types(tmp_path, arch, kw):
+    """A prefilled SSM or hybrid cache tree saved by the JAX package's
+    ``CheckpointManager`` restores in the port as ``LayerCache``,
+    ``SSMCache`` and ``KVCache`` with equal tensors, and the port decodes
+    from it."""
+    from repro_torch.models import ssm as TM
+    cfg, tcfg, params, model = carried(arch, 0, **kw)
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 36)).astype(np.int32)
+    _, jc = J_FWD(params, cfg, tokens, "prefill", JT.init_cache(cfg, 2, 40))
+    JC.CheckpointManager(str(tmp_path)).save(3, jc)
+    tree, _ = TC.CheckpointManager(str(tmp_path)).restore(device="cpu")
+    layers = [lc for _, lc in E._layer_caches(tree)]
+    assert all(isinstance(lc, T.LayerCache)
+               and isinstance(lc.ssm, TM.SSMCache) for lc in layers)
+    assert all((lc.kv is None) == (tcfg.num_heads == 0) for lc in layers)
+    jleaves = jax.tree.leaves(jc)
+    tleaves = [t for t in TC._flatten_with_paths(tree).values()
+               if t is not None]
+    assert len(jleaves) == len(tleaves)
+    for a, b in zip(jleaves, tleaves):
+        assert np.array_equal(f32(a), f32(b))
+    logits, _ = E.make_decode_step(tcfg)(
+        model, torch.from_numpy(tokens[:, -1:]), tree)
+    assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_serve_launcher_serves_ssm_and_hybrid(capsys, arch):
+    LS.main(["--device", "cpu", "--arch", arch])
+    out = capsys.readouterr().out
+    assert f"{arch}-smoke: 6 requests, 2 slots" in out
+    reqs = [ln for ln in out.splitlines() if ln.startswith("  req ")]
+    assert len(reqs) == 6 and all("(12 tokens)" in ln for ln in reqs)

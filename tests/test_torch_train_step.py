@@ -40,8 +40,11 @@ from repro_torch.train import trainer as TR  # noqa: E402
 
 from _lm_cases import carried, f32  # noqa: E402
 
-LOSS_CASES = [("qwen3-4b", {}), ("glm4-9b", {}), ("qwen3-4b", {"num_layers": 8})]
-LOSS_IDS = ["qwen3-4b", "glm4-9b", "qwen3-4b-8layers"]
+LOSS_CASES = [("qwen3-4b", {}), ("glm4-9b", {}), ("qwen3-4b", {"num_layers": 8}),
+              ("mamba2-780m", {"num_layers": 8}),
+              ("hymba-1.5b", {"num_layers": 4})]
+LOSS_IDS = ["qwen3-4b", "glm4-9b", "qwen3-4b-8layers", "mamba2-8layers",
+            "hymba-4layers"]
 
 
 def _grads_jax(params, cfg, tok, lab):
@@ -70,10 +73,12 @@ def _norm_rel(a, b) -> float:
 def test_lm_loss_and_gradients_match_jax(arch, kw):
     """The loss, its metrics and every parameter's gradient (glm4-9b:
     partial RoPE; 8 layers: the stacked layout, one ``[L, ...]`` gradient
-    a leaf as the reference's)."""
+    a leaf as the reference's; mamba2 and hymba over 40 tokens: the SSD's
+    padded chunks, and hymba's layer 1 the blocked window)."""
     cfg, tcfg, params, model = carried(arch, 0, **kw)
     rng = np.random.default_rng(0)
-    tok, lab = (rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    S = 40 if cfg.ssm_state else 24
+    tok, lab = (rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
                 for _ in range(2))
     (jl, jm), jg = _grads_jax(params, cfg, tok, lab)
     tl, tm, tg = _grads_port(model, tcfg, tok, lab)
@@ -225,6 +230,43 @@ def test_train_step_matches_jax(seed, case):
         assert np.float32(jm["lr"]) == tm["lr"].numpy()
         lrs.append(float(tm["lr"]))
     assert int(ts.step) == int(ts.opt_state.step) == 3
+    _hold_params(js.params, ts.params, lrs)
+
+
+@pytest.mark.parametrize("arch,kw", [("mamba2-780m", {"num_layers": 8}),
+                                     ("hymba-1.5b", {"num_layers": 4})],
+                         ids=["mamba2-8layers", "hymba-4layers"])
+def test_ssm_hybrid_train_step_matches_jax(arch, kw):
+    """3 plain steps of the SSM and hybrid families (their configs' AdamW,
+    remat "full", tied embeddings) from the same carried weights and
+    batches of 4 x 40 tokens: per step the loss, the grad norm and the lr,
+    then every parameter (``_hold_params``).  Seeds 0-4: the loss within
+    2.1e-4 (relative); the grad norm within 6.1e-3 in steps 1-2, held to
+    the dense case's 8.4e-3, and 8.5e-2 in step 3, held to 1.7e-1: the
+    parameters then differ by bf16 roundings of two updates (at most
+    2.9e-3 apart, 84-90% bitwise), and from equal parameters the step-3
+    gradients agree to 0.1% in norm."""
+    cfg, tcfg, params, model = carried(arch, 0, **kw)
+    assert tcfg.remat == "full" and tcfg.tie_embeddings
+    sched = (JO.cosine_schedule(1e-3, 1, 3), TO.cosine_schedule(1e-3, 1, 3))
+    jstep = jax.jit(JTR.make_train_step(cfg, schedule=sched[0]))
+    tstep = TR.make_train_step(tcfg, schedule=sched[1])
+    js = _jax_state(params)
+    ts = TR.TrainState(model, TO.AdamW().init(T.param_dict(model)),
+                       torch.zeros((), dtype=torch.int32))
+    rng = np.random.default_rng(0)
+    lrs = []
+    for step in range(3):
+        b = {k: rng.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)
+             for k in ("tokens", "labels")}
+        js, jm = jstep(js, b)
+        ts, tm = tstep(ts, b)
+        assert abs(float(jm["loss"]) - float(tm["loss"])) <= 4.4e-4 * float(
+            jm["loss"])
+        assert abs(float(jm["grad_norm"]) - float(tm["grad_norm"])) <= \
+            (8.4e-3 if step < 2 else 1.7e-1) * float(jm["grad_norm"])
+        assert np.float32(jm["lr"]) == tm["lr"].numpy()
+        lrs.append(float(tm["lr"]))
     _hold_params(js.params, ts.params, lrs)
 
 
