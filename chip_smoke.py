@@ -106,8 +106,8 @@ non-zero:
      ticks, the mass balance within 1e-5 every 100 (the verdict too if it
      converges in the window; not bitwise: the card's scatter-add is
      atomic);
- 20. ``lm_serve``, the dense LM at full width: qwen3-4b (36 layers,
-     4,022,272,000 parameters, bf16 weights from a seeded generator on the
+ 20. ``lm_serve``, the dense LM at full width: qwen3-4b (``LM_LAYERS``
+     of its 36 layers, bf16 weights from a seeded generator on the
      card) served as ``python -m repro_torch.launch.serve --arch qwen3-4b
      --no-reduced`` runs it (6 requests of 16 tokens, 2 slots, 12 new
      tokens each): each request equal to the card's ``generate`` of its
@@ -119,8 +119,8 @@ non-zero:
      at 4,096 tokens (the flash path) held to the dense path; the reduced
      qwen3-4b on the card held to the same weights on the CPU.  It
      launches no SpMV kernel (checked): its products are cuBLAS's;
- 21. ``lm_train``, the dense LM trained at full width: qwen3-4b (36 layers,
-     remat "full", AdamW) as ``python -m repro_torch.launch.train --arch
+ 21. ``lm_train``, the dense LM trained at full width: qwen3-4b
+     (``LM_LAYERS`` layers, remat "full", AdamW) as ``python -m repro_torch.launch.train --arch
      qwen3-4b`` runs it (batch 8, seq 128, lr 3e-4 warmed up over 1 of 10
      steps): every loss and grad norm finite and the mean loss of the last
      3 steps below the first step's; ms a step and tokens a second beside
@@ -132,9 +132,9 @@ non-zero:
      same weights (loss, grad norm, params), and a checkpoint round trip
      (bitwise, and the next step's loss).  It launches no SpMV kernel;
  22. ``lm_moe_serve``, the MoE family served at full width: phi3.5-moe
-     (d 4096, 32/8 x 128 GQA, 16 experts top-2, d_ff 6400; 16 of its 32
-     layers, a scan stack of [L, E, D, F] expert leaves, 21,067,464,704
-     bf16 parameters from a seeded generator on the card) under the serve
+     (d 4096, 32/8 x 128 GQA, 16 experts top-2, d_ff 6400;
+     ``MOE_SERVE_LAYERS`` of its 32 layers, a scan stack of [L, E, D, F]
+     expert leaves, bf16 weights from a seeded generator on the card) under the serve
      launcher's defaults (6 requests of 16 tokens, 2 slots, 12 new
      tokens): every logit finite; the layer-0 MoE output of a 2-row decode
      step and of a 4,096-token prefill held to the plain per-token fp32
@@ -164,10 +164,10 @@ non-zero:
      all-to-alls and the gather (each rank its share), every gradient held
      to the plain reference's (one process, the same picks and keep mask);
      the collectives' ms and bytes a rank, the backward's ms;
- 25. ``lm_ssm_serve``, mamba2-780m (48 SSD layers, d 1536) and hymba-1.5b
-     (32 hybrid layers, d 1600: attention 25/5 x 64 beside 50 SSD heads,
-     a 1,024-token window but in layers 0, 16 and 31) at full width and
-     depth, served as ``python -m repro_torch.launch.serve --arch <arch>
+ 25. ``lm_ssm_serve``, mamba2-780m (d 1536, SSD layers) and hymba-1.5b
+     (d 1600, hybrid layers: attention 25/5 x 64 beside 50 SSD heads, a
+     1,024-token window but in layers 0, L/2 and L-1) at full width, depth
+     cut to ``SSM_LAYERS`` (12 of 48, 8 of 32), served as ``python -m repro_torch.launch.serve --arch <arch>
      --no-reduced`` serves them (6 requests of 16 tokens, 2 slots, 12 new),
      in bf16 and timed, then the same weights in fp32: each request against
      ``generate`` of its prompt alone (equal, or the first difference a
@@ -177,12 +177,12 @@ non-zero:
      reference too, so bf16 is reported: ROADMAP.md §3); prefill ms at
      16 and 4,096 tokens and decode ms a step beside their bounds, tokens
      a second, peak memory, busy share; the 4,096-token
-     prefill (hymba: 29 blocked windows, 3 flash layers, rings from then
+     prefill (hymba: blocked windows, 3 flash layers, rings from then
      on) with layer 0's chunked scan held to the fp32 sequential recurrence
      on its inputs, then 8 decode steps from its cache, their logits
      against a full forward's (fp32 held, bf16 reported); the reduced
      configs on the card against the CPU;
- 26. ``lm_ssm_train``: both at full width and depth trained as ``python -m
+ 26. ``lm_ssm_train``: both at that depth trained as ``python -m
      repro_torch.launch.train --arch <arch>`` trains them (10 steps):
      every loss and grad norm finite, the mean of the last 3 below the
      first; ms a step, tokens a second, a profiled step, peak; 2 steps at
@@ -193,11 +193,38 @@ non-zero:
      each rank's output and the input gradients against one process's
      ``ssd_chunked`` over the whole sequence; the call's ms and the bytes
      a rank gathers;
- 28. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+ 28. ``lm_mla_serve``, deepseek-v3 at full width (d 7168, MLA with a
+     packed compressed cache, 256 experts top-8 and a shared one), depth
+     cut to ``MLA_SERVE_LAYERS`` (3 dense, 2 MoE; 54.6 GB), served with the
+     serve launcher's defaults: first tokens teacher-forced (gated), the
+     requests equal to ``generate`` alone, later tokens' argmax share and
+     dropped pairs a decode step (reported); the first MoE layer of a
+     decode step and a 4,096-token prefill against the plain MoE; prefill
+     and decode ms beside their bounds, busy share, peak; MLA layer 0's
+     absorbed decode against its materialised train path and its flash
+     path against dense at 4,096; the reduced config on the card against
+     the CPU;
+ 29. ``lm_mla_train``: deepseek-v3 at ``MLA_TRAIN_LAYERS`` (3 dense, 1 MoE)
+     plus the MTP head, Adafactor, 10 steps at 8 x 128 at the launcher's lr
+     (finite, reported) and at ``MLA_TRAIN_LR`` (finite, the mean of the
+     last 3 below the first); ms a step beside the bound, a profiled step,
+     the memory reckoning and peak; 2 steps at 1 x 4,096 (the flash
+     backward with q/k 192 and v 128 wide, counted); a checkpoint round
+     trip of the 8-layer reduced config;
+ 30. ``lm_encdec_serve``: whisper-medium at full width and depth (24 + 24
+     layers, 1,500 frames): ``generate`` with features, every served token
+     against a teacher-forced ``decode_stack`` (near-tie rule); encoder,
+     prefill and decode ms beside their bounds; the reduced config on the
+     card against the CPU;
+ 31. ``lm_encdec_train``: whisper-medium trained as ``python -m
+     repro_torch.launch.train --arch whisper-medium`` trains it (8 x 128,
+     1,500 frames a row, 10 steps): finite, falling losses; ms a step
+     beside the bound, peak; a checkpoint round trip of the reduced config;
+ 32. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
-20-27) and read after it.  The LM phases (20-27) launch no SpMV
+20-31) and read after it.  The LM phases (20-31) launch no SpMV
 kernel (checked): they reach no ``pl.pallas_call`` in the reference.  The
 multi-rank phases launch no kernel (the engine tick has none): their
 labels are held to phase 4's, which equal the kernel-backed BSP's.  The ranks are one pool of spawned processes for all
@@ -267,7 +294,7 @@ PPR_BASELINE = {"hits": 2, "misses": 2, "invalidations": 2}
 DIST_RANKS, DIST_TIMEOUT_S, DIST_A2A_REPS = 8, 600, 20
 MAIN_PATH_COUNTS = (1246, 19678958)
 DIST_LOCKSTEP_TICKS, DIST_RANK_TICKS = 20000, 1000
-# lm_serve: qwen3-4b at full width and depth, served as launch/serve's
+# lm_serve: qwen3-4b at full width (LM_LAYERS deep), served as launch/serve's
 # defaults run it (6 requests of 16 tokens, 2 slots, 12 new tokens each);
 # one prefill of LM_LONG tokens takes the flash path (> 2048).  LM_GAP is
 # tests/test_serve.py's bf16 near tie; LM_FLASH_TOL is the CPU test's
@@ -275,9 +302,15 @@ DIST_LOCKSTEP_TICKS, DIST_RANK_TICKS = 20000, 1000
 # tolerance against the JAX package (tests/test_torch_lm.py), both of
 # max|out|
 LM_ARCH, LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_MAX_NEW = "qwen3-4b", 6, 2, 16, 12
+# the earlier LM phases run at a cut depth, so the whole script stays
+# inside its time limit with the MLA and encoder-decoder phases (at full
+# depth the phases took 1,155 s on one H100 host): qwen3-4b LM_LAYERS
+# of 36 layers served and trained, phi3.5 MOE_SERVE_LAYERS of 32 served
+# (still a scan stack), mamba2 and hymba SSM_LAYERS of 48 and 32
+LM_LAYERS = 12
 LM_LONG, LM_REPS, LM_GAP = 4096, 5, 0.15
 LM_FLASH_TOL, LM_CARD_TOL = 2.4e-2, 5.0e-2
-# lm_train: qwen3-4b at full width and depth trained as launch/train's
+# lm_train: qwen3-4b at full width (LM_LAYERS deep) trained as launch/train's
 # defaults run it (batch 8, seq 128, lr 3e-4, cosine warm-up over steps //
 # 10); then 2 steps at 1 x LM_LONG tokens (the flash path).  The optimizer
 # and clip move LM_TRAIN_OPT_BYTES a parameter.  LM_FLASH_GRAD_TOL is the
@@ -289,8 +322,9 @@ LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_LR = 10, 8, 128, 3e-4
 LM_TRAIN_OPT_BYTES = 28
 LM_FLASH_GRAD_TOL, LM_TRAIN_CARD_TOL, LM_TRAIN_CKPT_TOL = 3.2e-2, 1.0e-2, 1e-4
 # the MoE phases: phi3.5-moe at full width (d 4096, 16 experts top-2, d_ff
-# 6400), depth cut to fit the card: MOE_SERVE_LAYERS served (a scan stack,
-# 42.1 GB of weights), MOE_TRAIN_LAYERS trained (AdamW, ~68 GB).  One MoE
+# 6400), depth cut to fit the card and the time limit: MOE_SERVE_LAYERS
+# served (a scan stack, 21.3 GB of weights), MOE_TRAIN_LAYERS trained
+# (AdamW, ~68 GB).  One MoE
 # layer runs expert-parallel on MOE_RANKS gloo ranks sharing the card,
 # MOE_BATCH x MOE_SEQ tokens, on each of MOE_MESHES.  MOE_PLAIN_TOL holds
 # a bf16 MoE output to the plain per-token fp32 one (of max|y|; a CPU
@@ -299,7 +333,7 @@ LM_FLASH_GRAD_TOL, LM_TRAIN_CARD_TOL, LM_TRAIN_CKPT_TOL = 3.2e-2, 1.0e-2, 1e-4
 # MOE_CARD_SHARE the share of the reduced model's positions within
 # LM_CARD_TOL on the card against the CPU (tests/test_torch_moe.py's
 # rule: the rest are routing flips)
-MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 16, 4
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = "phi3.5-moe-42b-a6.6b", 8, 4
 MOE_RANKS, MOE_BATCH, MOE_SEQ, MOE_REPS, MOE_SEED = 4, 4, 512, 5, 20
 MOE_MESHES = ({"data": 1, "model": 4}, {"data": 2, "model": 2})
 MOE_PLAIN_TOL, MOE_AUX_TOL, MOE_CARD_SHARE = 2.0e-2, 1e-4, 0.75
@@ -323,6 +357,7 @@ MOE_GRAD_TOL = 4.0e-2
 # phase on the CPU: y bitwise, the bf16 gradients within 2.3e-3; the last
 # bit of a bf16 element near max|grad| is 3.9e-3-7.8e-3 of it)
 SSM_ARCHS, SSM_DECODE, SSM_HYBRID_LAYERS = ("mamba2-780m", "hymba-1.5b"), 8, 4
+SSM_LAYERS = {"mamba2-780m": 12, "hymba-1.5b": 8}
 SSM_SCAN_TOL, SSM_SEQ_TOL = 1.9e-2, 1.6e-2
 # SSM_DECODE_TOL holds the fp32 recurrent decode's logits (teacher-forced
 # along a served sequence) to one fp32 full forward's, the chunked scan, of
@@ -334,6 +369,30 @@ SSM_SCAN_TOL, SSM_SEQ_TOL = 1.9e-2, 1.6e-2
 # and the fp32 run is held
 SSM_DECODE_TOL = 1.0e-3
 SSM_SEQ_RANKS, SSM_SEQ_LEN, SSM_SEQ_REPS, SSM_SEQ_SEED = 4, 4096, 5, 40
+# MLA and MTP: deepseek-v3 at full width, depth cut to fit the card (61
+# layers are 671 B parameters; one MoE layer's experts 22.55 GB of bf16):
+# MLA_SERVE_LAYERS served (3 dense, 2 MoE: 54.6 GB of weights), MLA_TRAIN_
+# LAYERS trained with the MTP head (3 dense, 1 MoE: 31.6 GB of weights,
+# the same of gradients; Adafactor's moments are factored).  MLA_ABSORB_
+# TOL holds layer 0's absorbed decode to its materialised train path at
+# the same positions, of max|y| (one full-width MLA layer on the CPU, 8
+# decode steps past 16 tokens, seeds 0-2: at most 5.4e-3).  LM_ADAFACTOR_
+# BYTES is the clip's and Adafactor's traffic a parameter: the norm's read
+# of the bf16 gradient, the clip's read and write, Adafactor's three
+# reads of it (moments, the update's RMS, the update), the parameter's
+# read and write
+MLA_ARCH, MLA_SERVE_LAYERS, MLA_TRAIN_LAYERS = "deepseek-v3-671b", 5, 4
+MLA_ABSORB_TOL, LM_ADAFACTOR_BYTES = 2.2e-2, 16
+# the train launcher's lr 3e-4 does not train deepseek at full width under
+# Adafactor (the reference's init: experts at 1/sqrt(256); ROADMAP §3):
+# the card's losses rose from 17.24 within 10 steps at 3e-4 and 3e-5, and
+# fell at 1e-5 (to 12.0-12.4) and 3e-6 (to 16.3-16.5).  lm_mla_train
+# reports the 3e-4 run and holds the MLA_TRAIN_LR run to a falling loss
+MLA_TRAIN_LR = 1e-5
+# the encoder-decoder: whisper-medium at full width and depth (24 + 24
+# layers, 1,500 frames; nothing cut), served with LM_SLOTS rows of
+# LM_PROMPT tokens and LM_MAX_NEW new, trained as launch/train's defaults
+ENCDEC_ARCH = "whisper-medium"
 
 
 class SmokeFailure(Exception):
@@ -1790,7 +1849,7 @@ def lm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, cfg, dev,
     the CPU from the same weights, and a checkpoint round trip."""
     out = {"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat,
            "optimizer": cfg.optimizer, "parameters": cfg.param_count()}
-    # ---- (a) the launcher's defaults at full width and depth ----
+    # ---- (a) the launcher's defaults at full width ----
     _sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1966,7 +2025,8 @@ def moe_keep(np, sel, C: int):
 def moe_plain(torch, p: dict, x, gate, sel, keep):
     """The plain per-token fp32 MoE: y_t = sum_j keep_tj * gate_tj *
     expert_{sel_tj}(x_t), each expert's gated MLP (silu) in fp32 on the
-    bf16 weights upcast; x [T, D], gate/sel/keep [T, k]."""
+    bf16 weights upcast, plus the shared expert's when ``p`` has one; x
+    [T, D], gate/sel/keep [T, k]."""
     xf = x.float()
     y = torch.zeros_like(xf)
     keep = torch.as_tensor(keep, device=x.device)
@@ -1979,6 +2039,10 @@ def moe_plain(torch, p: dict, x, gate, sel, keep):
         g = xe @ p["w_gate"][e].float()
         out = (g * torch.sigmoid(g) * h) @ p["w_out"][e].float()
         y.index_add_(0, t_i, out * gate[t_i, j_i, None])
+    if "shared_w_in" in p:
+        hs = xf @ p["shared_w_in"].float()
+        gs = xf @ p["shared_w_gate"].float()
+        y = y + (gs * torch.sigmoid(gs) * hs) @ p["shared_w_out"].float()
     return y
 
 
@@ -2313,15 +2377,21 @@ def lm_moe_train_phase(np, torch, T, TR, OPT, DP, CK, cfg, dev,
 
 
 def checkpoint_round_trip(torch, TR, DP, CK, small_cfg, dev,
-                          where: str) -> dict:
+                          where: str, features=None) -> dict:
     """``small_cfg`` trained one step on the card, its state saved by
     ``CheckpointManager`` (on a background thread) and restored: bitwise
     the saved state, and the next step's loss equal to the uninterrupted
-    run's."""
+    run's.  ``features(step, rows)`` gives an encoder-decoder's frames."""
     fixed = TR.make_train_step(small_cfg)
     small = DP.DataPipeline(DP.SyntheticSource(small_cfg.vocab_size, 32), 4)
+
+    def batch(i):
+        b = small.next_batch()
+        if features is not None:
+            b["features"] = features(i, 4)
+        return b
     state = TR.init_state(small_cfg, seed=0, device=dev)
-    state, _ = fixed(state, small.next_batch())
+    state, _ = fixed(state, batch(0))
     with tempfile.TemporaryDirectory() as ck_dir:
         cm = CK.CheckpointManager(ck_dir)
         cm.save(int(state.step), TR.to_checkpoint(state),
@@ -2336,7 +2406,7 @@ def checkpoint_round_trip(torch, TR, DP, CK, small_cfg, dev,
                                CK._flatten_with_paths(got).values()))
     check(same and meta["pipeline"] == small.snapshot(),
           f"{where}: the restored state is not bitwise the saved one")
-    nxt = small.next_batch()
+    nxt = batch(1)
     _, a = fixed(state, nxt)
     _, b = fixed(back, nxt)
     check(float(a["loss"]) == float(b["loss"]),
@@ -2840,7 +2910,7 @@ def ssm_served(np, torch, T, SE, model, cfg, reqs, s_max: int, where: str,
 
 def lm_ssm_serve_phase(np, torch, T, TA, SSM, SE, cfg, dev, long_len: int,
                        cpu_cfg) -> dict:
-    """An SSM or hybrid LM at full width and depth served on ``dev`` as
+    """An SSM or hybrid LM at full width served on ``dev`` as
     ``python -m repro_torch.launch.serve --arch <cfg> --no-reduced`` serves
     it (6 requests of 16 tokens, 2 slots, 12 new), timed; the prefill and
     decode times beside their bounds; a prefill of ``long_len`` tokens
@@ -3042,7 +3112,7 @@ def ssm_small_cfg(cfg, ssm_layers: int):
 
 def lm_ssm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, cfg, dev,
                        long_len: int, small_cfg) -> dict:
-    """An SSM or hybrid LM at full width and depth trained on ``dev`` as
+    """An SSM or hybrid LM at full width trained on ``dev`` as
     ``python -m repro_torch.launch.train --arch <cfg>`` trains it (batch
     8, seq 128, lr 3e-4 warmed up over 1 of 10 steps; the config's AdamW,
     remat "full", tied embeddings), then 2 steps at 1 x ``long_len`` (the
@@ -3243,6 +3313,679 @@ def ssd_seq_parallel_phase(np, torch, MS, SH, A2A, SSM, cfg, dev,
     return out
 
 
+# ---- MLA and MTP (deepseek-v3) and the encoder-decoder (whisper) ----
+def mla_bounds(cfg, tokens: int, pairs: int, weight_bytes: int,
+               kv_bytes: int, buffer_rows: int) -> dict:
+    """The least time of a deepseek forward over ``tokens`` new tokens
+    that attend to ``pairs`` (query, key) pairs a layer and head: the
+    weights it reads (and the compressed cache) over the memory rate, or
+    its bf16 products over the tensor cores' peak, whichever is larger.
+    Products: each layer's MLA projections (q down and up, kv down, k up
+    and v up, out) a token; the dense layers' gated MLP; the MoE layers'
+    router, shared expert and the experts on the whole ``[E, C]`` buffer
+    (``buffer_rows`` rows a layer, empty slots included: what the three
+    ``bmm`` compute); QK^T over 192 and PV over 128 a pair and head; the
+    head."""
+    d, H, L = cfg.d_model, cfg.num_heads, cfg.num_layers
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r, ql = cfg.kv_lora_rank, cfg.q_lora_rank
+    mla = (d * ql + ql * H * (dn + dr) + d * (r + dr) + r * H * (dn + dv)
+           + H * dv * d)
+    k_dense = cfg.first_k_dense
+    ffn = (k_dense * 3 * d * cfg.dense_d_ff
+           + (L - k_dense) * (d * cfg.num_experts
+                              + 3 * d * cfg.d_ff * cfg.num_shared_experts))
+    proj = 2 * tokens * (L * mla + ffn + cfg.vocab_size * d)
+    experts = 3 * 2 * buffer_rows * d * cfg.d_ff * (L - k_dense)
+    attn = 2 * L * H * (dn + dr + dv) * pairs
+    bytes_ms = (weight_bytes + kv_bytes) / H100_BYTES_PER_S * 1e3
+    ops_ms = (proj + experts + attn) / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "tflop": {"projections": proj / 1e12, "experts": experts / 1e12,
+                      "attention": attn / 1e12}}
+
+
+def mtp_leaf_correction(cfg) -> int:
+    """The reference's ``param_count`` counts the MTP block's MLP at
+    ``d_ff``; its leaves are ``dense_d_ff`` wide."""
+    return cfg.mtp_depth * 3 * cfg.d_model * (cfg.dense_d_ff - cfg.d_ff)
+
+
+def lm_mla_serve_phase(np, torch, T, TA, LY, MOE, SE, cfg, dev,
+                       long_len: int, cpu_cfg) -> dict:
+    """deepseek-v3 at full width (``cfg``: depth cut to 3 dense and 2 MoE
+    layers, the MTP head built but not read) served on ``dev`` with the
+    serve launcher's defaults: each request's first token teacher-forced
+    against a full forward (gated), its tokens against ``generate`` alone
+    and the later tokens' argmax share (reported: decode buckets each
+    step's tokens alone, ROADMAP §3), the dropped pairs a decode step;
+    the first MoE layer's output (a 2-row decode step, a ``long_len``
+    prefill) against the plain per-token fp32 MoE with the same picks and
+    keep mask; prefill and decode ms beside their bounds; MLA layer 0's
+    absorbed decode against its materialised train path at the same
+    positions, and its flash path against dense at ``long_len``; the
+    reduced config on the card against the CPU."""
+    where = "lm_mla_serve"
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = T.init_lm(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    mtp_bytes = sum(p.numel() * p.element_size()
+                    for p in model.mtp.parameters())
+    n_matrix = sum(p.numel() for p in params if p.dtype == torch.bfloat16)
+    check(n_matrix == cfg.param_count() + mtp_leaf_correction(cfg),
+          f"{where}: {n_matrix} bf16 parameters, param_count() "
+          f"{cfg.param_count()}")
+    plan = T.build_plan(cfg).stacks
+    check([(s.kind, s.n) for s in plan] == [
+        ("dense", cfg.first_k_dense), ("moe", cfg.num_layers
+                                       - cfg.first_k_dense)]
+          and tuple(model.stacks[1][0].moe["w_in"].shape)
+          == (cfg.num_experts, cfg.d_model, cfg.d_ff),
+          f"{where}: the plan is {plan}")
+
+    def last_logits(tokens):
+        logits = T.forward(model, cfg, torch.as_tensor(tokens, device=dev))[0]
+        check(bool(torch.isfinite(logits).all()),
+              f"{where}: a logit is not finite")
+        return logits[:, -1].float().cpu().numpy()
+
+    # ---- the slot server: launch/serve's defaults ----
+    rng = np.random.default_rng(0)
+    s_max = LM_PROMPT + LM_MAX_NEW + 8
+    reqs = [SE.Request(rid, rng.integers(0, cfg.vocab_size, LM_PROMPT)
+                       .astype(np.int32), LM_MAX_NEW)
+            for rid in range(LM_REQUESTS)]
+    warm = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    warm.submit(reqs[0])
+    warm.run()
+    server = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    check(server.caches[0][0].kv.v is None
+          and server.caches[0][0].kv.pos.shape == (LM_SLOTS,),
+          f"{where}: the slot cache is not the packed per-slot one")
+    for r in reqs:
+        server.submit(r)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    done = server.run()
+    _sync(torch, dev)
+    serve_s = time.perf_counter() - t0
+    served = sum(len(v) for v in done.values())
+    check(sorted(done) == list(range(LM_REQUESTS))
+          and all(len(v) == LM_MAX_NEW for v in done.values()),
+          f"{where}: served {({k: len(v) for k, v in done.items()})}")
+    counted = SE.SlotServer(model, cfg, num_slots=LM_SLOTS, s_max=s_max)
+    for r in reqs:
+        counted.submit(r)
+    with MoeTap(torch, MOE) as tap:
+        again = counted.run()
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    decode_steps = sum(1 for s in tap.calls if s[1] == 1) // n_moe
+    decode_drops = tap.dropped(decode_only=True)
+    same_twice = all(np.array_equal(again[k], v) for k, v in done.items())
+    equal, argmax, first = 0, 0, 0
+    for r in reqs:
+        alone = SE.generate(model, cfg, r.prompt[None], LM_MAX_NEW)[0]
+        equal += bool(np.array_equal(alone[LM_PROMPT:], done[r.rid]))
+        first += lm_teacher_forced(np, last_logits, r.prompt,
+                                   alone[LM_PROMPT:LM_PROMPT + 1],
+                                   f"{where} request {r.rid}")
+        for t in range(1, LM_MAX_NEW):
+            last = last_logits(alone[None, :LM_PROMPT + t])[0]
+            argmax += int(last.argmax()) == int(alone[LM_PROMPT + t])
+    check(first >= 0.75 * LM_REQUESTS, f"{where}: {first} of "
+          f"{LM_REQUESTS} first tokens are the full forward's argmax")
+
+    # ---- step times beside their bounds ----
+    prefill = SE.make_prefill_step(cfg)
+    decode = SE.make_decode_step(cfg)
+    serve_bytes = weight_bytes - mtp_bytes  # serving never reads MTP
+    kv_row = cfg.num_layers * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2
+    E = cfg.num_experts
+
+    def prefill_ms(n):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                               device=dev)
+
+        def run():
+            logits, _ = prefill(model, {"tokens": toks},
+                                T.init_cache(cfg, 1, n, dev))
+            check(bool(torch.isfinite(logits).all()),
+                  f"{where}: prefill {n} logits not finite")
+        return median_ms(torch, dev, run), mla_bounds(
+            cfg, n, n * (n + 1) // 2, serve_bytes, n * kv_row,
+            E * MOE.capacity(cfg, n)), toks
+
+    short_ms, short_bound, _ = prefill_ms(LM_PROMPT)
+    long_ms, long_bound, long_toks = prefill_ms(long_len)
+    with MoeTap(torch, MOE) as tap:
+        prefill(model, {"tokens": long_toks}, T.init_cache(cfg, 1, long_len,
+                                                           dev))
+    long_check = moe_layer_vs_plain(np, torch, MOE, cfg, tap,
+                                    f"{where} prefill {long_len}")
+    long_check["dropped_pairs_all_layers"] = tap.dropped()
+    caches = SE._slot_positions(T.init_cache(cfg, LM_SLOTS, s_max, dev),
+                                LM_SLOTS)
+    for slot, r in enumerate(reqs[:LM_SLOTS]):
+        one = T.init_cache(cfg, 1, s_max, dev)
+        _, one = prefill(model, {"tokens": torch.as_tensor(
+            r.prompt[None], device=dev)}, one)
+        SE._write_slot(caches, one, slot)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1)),
+                          device=dev)
+    state = {"caches": caches}
+
+    def step():
+        logits, state["caches"] = decode(model, tok, state["caches"])
+        return logits
+
+    decode_ms = median_ms(torch, dev, step)
+    with MoeTap(torch, MOE) as tap:
+        check(bool(torch.isfinite(step()).all()),
+              f"{where}: decode logits not finite")
+    decode_check = moe_layer_vs_plain(np, torch, MOE, cfg, tap,
+                                      f"{where} decode")
+    reach = int(state["caches"][0][0].kv.pos.max())
+    decode_bound = mla_bounds(cfg, LM_SLOTS, LM_SLOTS * reach, serve_bytes,
+                              LM_SLOTS * s_max * kv_row,
+                              E * MOE.capacity(cfg, LM_SLOTS))
+    profiles = {}
+    if dev.type == "cuda":
+        profiles = {"decode_x3": device_profile(
+            torch, lambda: [step() for _ in range(3)]),
+            f"prefill_{long_len}": device_profile(
+            torch, lambda: prefill(model, {"tokens": long_toks},
+                                   T.init_cache(cfg, 1, long_len, dev)))}
+    peak = _peak(torch, dev)
+
+    # ---- MLA layer 0 alone: absorbed decode, flash against dense ----
+    blk = model.stacks[0][0]
+    attn = {k: v.detach().clone() for k, v in blk.attn.items()}
+    seq = torch.as_tensor(np.concatenate([reqs[0].prompt, done[0]])[None],
+                          device=dev)
+    h = LY.rms_norm(T.embed_tokens(model, cfg, seq), blk.norm1,
+                    cfg.norm_eps)
+    h_long = LY.rms_norm(T.embed_tokens(model, cfg, long_toks), blk.norm1,
+                         cfg.norm_eps)
+    del model, server, warm, counted, caches, state, blk
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    S = seq.shape[1]
+    pos = torch.arange(S, device=dev)[None]
+    with torch.no_grad():
+        full, _ = TA.attention_layer(attn, cfg, h, pos)
+        c = TA.init_kv_cache(cfg, 1, S, dev)
+        _, c = TA.attention_layer(attn, cfg, h[:, :LM_PROMPT],
+                                  pos[:, :LM_PROMPT], cache=c,
+                                  mode="prefill")
+        steps = []
+        for t in range(LM_PROMPT, S):
+            o, c = TA.attention_layer(attn, cfg, h[:, t:t + 1],
+                                      pos[:, t:t + 1], cache=c,
+                                      mode="decode")
+            steps.append(o)
+        absorbed = torch.cat(steps, dim=1).float()
+        ref = full[:, LM_PROMPT:].float()
+        absorb_err = float((absorbed - ref).abs().max() / ref.abs().max())
+        check(absorb_err <= MLA_ABSORB_TOL,
+              f"{where}: layer 0's absorbed decode is {absorb_err} of "
+              f"max|y| from its materialised train path")
+        lpos = torch.arange(long_len, device=dev)[None]
+        check(long_len > TA.FLASH_THRESHOLD, f"{where}: the long prefill "
+                                             "does not take the flash path")
+        flash, _ = TA.attention_layer(attn, cfg, h_long, lpos)
+        threshold, TA.FLASH_THRESHOLD = TA.FLASH_THRESHOLD, long_len
+        try:
+            dense, _ = TA.attention_layer(attn, cfg, h_long, lpos)
+        finally:
+            TA.FLASH_THRESHOLD = threshold
+        flash_err = float((flash.float() - dense.float()).abs().max()
+                          / dense.float().abs().max())
+    check(flash_err <= LM_FLASH_TOL, f"{where}: flash MLA at {long_len} "
+                                     f"tokens is {flash_err} of max|out| "
+                                     f"from the dense path")
+    del attn, h, h_long, full, dense, flash, long_toks
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = dict(arch=cfg.name, layers=cfg.num_layers,
+               first_k_dense=cfg.first_k_dense, mtp_depth=cfg.mtp_depth,
+               bf16_parameters=n_matrix, weight_bytes=weight_bytes,
+               mtp_bytes=mtp_bytes, init_s=init_s, requests=LM_REQUESTS,
+               slots=LM_SLOTS, prompt=LM_PROMPT, max_new=LM_MAX_NEW,
+               served_tokens=served, serve_s=serve_s,
+               tokens_per_s=served / serve_s,
+               same_tokens_served_twice=same_twice,
+               decode_steps=decode_steps, decode_dropped_pairs=decode_drops,
+               dropped_pairs_per_decode_step=decode_drops / decode_steps,
+               equal_to_generate_alone=equal, first_token_argmax=first,
+               later_tokens_argmax_share=argmax / (LM_REQUESTS
+                                                   * (LM_MAX_NEW - 1)),
+               prefill_ms={LM_PROMPT: short_ms, long_len: long_ms},
+               prefill_bound={LM_PROMPT: short_bound, long_len: long_bound},
+               decode_ms=decode_ms, decode_bound=decode_bound,
+               first_moe_layer_vs_plain={"decode": decode_check,
+                                         f"prefill_{long_len}": long_check},
+               absorbed_vs_materialised=absorb_err,
+               absorbed_tol=MLA_ABSORB_TOL, flash_vs_dense=flash_err,
+               flash_tol=LM_FLASH_TOL, profiles=profiles or "not measured",
+               max_memory_allocated=peak)
+
+    # ---- the reduced config on the card against the CPU ----
+    host = T.init_lm(cpu_cfg, seed=0, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    toks = rng.integers(0, cpu_cfg.vocab_size, (2, LM_PROMPT))
+    lc = T.forward(host, cpu_cfg, torch.as_tensor(toks))[0].float()
+    lg = T.forward(card, cpu_cfg, torch.as_tensor(toks, device=dev)
+                   )[0].float().cpu()
+    per = (lg - lc).abs().amax(-1) / lc.abs().max()
+    share = float((per <= LM_CARD_TOL).float().mean())
+    out["card_vs_cpu"] = {"share_within": share, "tol": LM_CARD_TOL,
+                          "min_share": MOE_CARD_SHARE,
+                          "max_rel": float(per.max())}
+    check(share >= MOE_CARD_SHARE and float(per.max()) <= 1.0,
+          f"{where}: {cpu_cfg.name} on the card against the CPU: "
+          f"{out['card_vs_cpu']}")
+    say(where, **out)
+    return out
+
+
+def _mla_train_run(np, torch, TR, OPT, DP, cfg, dev, lr: float):
+    """``LM_TRAIN_STEPS`` steps of ``cfg`` from seed 0 at ``lr`` (warmed up
+    over 1 of them, cosine after): (state, step_fn, pipe, losses, mtp
+    terms, auxes, grad norms, ms a step)."""
+    state = TR.init_state(cfg, seed=0, device=dev)
+    schedule = OPT.cosine_schedule(lr, warmup=max(LM_TRAIN_STEPS // 10, 1),
+                                   total=LM_TRAIN_STEPS)
+    step_fn = TR.make_train_step(cfg, schedule=schedule)
+    pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size, LM_TRAIN_SEQ),
+                           LM_TRAIN_BATCH)
+    losses, mtps, auxes, gnorms, ms = [], [], [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, pipe.next_batch())
+        losses.append(float(m["loss"]))
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        mtps.append(float(m["mtp"]))
+        auxes.append(float(m["aux"]))
+        gnorms.append(float(m["grad_norm"]))
+    return state, step_fn, pipe, losses, mtps, auxes, gnorms, ms
+
+
+def lm_mla_train_phase(np, torch, T, TA, TR, OPT, DP, CK, cfg, dev,
+                       long_len: int, small_cfg) -> dict:
+    """deepseek-v3 at full width (``cfg``: 3 dense and 1 MoE layer plus
+    the MTP head) trained on ``dev`` as ``python -m
+    repro_torch.launch.train --arch deepseek-v3-671b --layers 4`` trains
+    it (the config's Adafactor, remat "full", batch 8 x seq 128, warmed
+    up over 1 of 10 steps): at the launcher's lr ``LM_TRAIN_LR`` (every
+    loss finite, reported: the recipe is unstable at this width, in both
+    packages, ROADMAP §3), then from the same weights at ``MLA_TRAIN_LR``
+    (``--lr``; every loss, ``mtp`` and grad norm finite, the mean loss of
+    the last 3 below the first), 2 steps at 1 x ``long_len`` (the flash
+    backward with q and k 192 wide, v 128, counted), and a checkpoint
+    round trip of ``small_cfg``."""
+    where = "lm_mla_train"
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "first_k_dense": cfg.first_k_dense, "mtp_depth": cfg.mtp_depth,
+           "remat": cfg.remat, "optimizer": cfg.optimizer}
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, _, _, losses, mtps, auxes, gnorms, _ = _mla_train_run(
+        np, torch, TR, OPT, DP, cfg, dev, LM_TRAIN_LR)
+    check(all(np.isfinite(losses + mtps + auxes + gnorms)),
+          f"{where} at lr {LM_TRAIN_LR}: loss {losses} mtp {mtps} aux "
+          f"{auxes} grad norm {gnorms}")
+    out["launcher_lr"] = {"lr": LM_TRAIN_LR, "losses": losses, "mtp": mtps,
+                          "grad_norms": gnorms,
+                          "last_3_below_first": bool(
+                              np.mean(losses[-3:]) < losses[0])}
+    del state
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    state, step_fn, pipe, losses, mtps, auxes, gnorms, ms = _mla_train_run(
+        np, torch, TR, OPT, DP, cfg, dev, MLA_TRAIN_LR)
+    out["runs_s"] = time.perf_counter() - t0
+    params = list(state.params.parameters())
+    n_params = sum(p.numel() for p in params)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    moments = sum(t.numel() * t.element_size()
+                  for f in ("vr", "vc", "v")
+                  for t in getattr(state.opt_state, f).values())
+    # the reckoning: bf16 weights, bf16 gradients (the step's), the
+    # factored moments, one piece's fp32 temporaries
+    out["reckoning_bytes"] = {
+        "weights": weight_bytes, "gradients": weight_bytes,
+        "moments": moments, "optimizer_piece_fp32": 4 * 4 * OPT.PIECE}
+    out["lr"] = MLA_TRAIN_LR
+    check(all(np.isfinite(losses + mtps + auxes + gnorms)),
+          f"{where}: loss {losses} mtp {mtps} aux {auxes} grad norm {gnorms}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"{where}: the mean loss of the last 3 steps is not below the "
+          f"first step's: loss {losses} mtp {mtps} grad norm {gnorms}")
+    n_mla = cfg.num_layers + cfg.mtp_depth
+    moe_layers = cfg.num_layers - cfg.first_k_dense
+    idle = moe_layers * (cfg.num_experts - cfg.experts_per_token
+                         ) * 3 * cfg.d_model * cfg.d_ff
+    active = sum(p.numel() for p in params if p.dtype == torch.bfloat16
+                 ) - idle
+
+    def bound(rows, seq):
+        """8 x the active bf16 parameters x tokens (forward, backward 2x,
+        remat's second forward) plus causal MLA attention (QK^T over 192,
+        PV over 128) four times, then ``LM_ADAFACTOR_BYTES`` a parameter
+        of clip and Adafactor traffic."""
+        attn = 4 * 2 * n_mla * cfg.num_heads * (
+            cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim
+        ) * rows * seq * (seq + 1) // 2
+        ops = 8 * active * rows * seq + attn
+        ops_ms = ops / H100_BF16_TENSOR_OPS_PER_S * 1e3
+        bytes_ms = LM_ADAFACTOR_BYTES * n_params / H100_BYTES_PER_S * 1e3
+        return {"bound_ms": ops_ms + bytes_ms, "ops_ms": ops_ms,
+                "bytes_ms": bytes_ms, "tflop": ops / 1e12,
+                "active_parameters": active}
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    out.update(parameters=n_params, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+               steps=LM_TRAIN_STEPS, losses=losses, mtp=mtps, auxes=auxes,
+               grad_norms=gnorms, step_ms=ms, step_ms_median=steady,
+               tokens_per_s=tokens / steady * 1e3,
+               bound=bound(LM_TRAIN_BATCH, LM_TRAIN_SEQ))
+    if dev.type == "cuda":
+        held = {"state": state}
+
+        def profiled():
+            held["state"], m = step_fn(held["state"], pipe.next_batch())
+            return m
+        out["profile"] = device_profile(torch, profiled)
+        state = held.pop("state")
+    out["max_memory_allocated"] = _peak(torch, dev)
+
+    # ---- 2 steps at 1 x long_len: the flash backward, dv != hd ----
+    long_pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size, long_len),
+                                1)
+    with CallTap(TA, "_flash_bwd") as fb:
+        state, l_losses, l_gn, l_ms = _train_steps(
+            torch, TR, state, step_fn,
+            [long_pipe.next_batch() for _ in range(2)], dev)
+    check(all(np.isfinite(l_losses)) and all(np.isfinite(l_gn)),
+          f"{where}: at {long_len} tokens loss {l_losses} grad norm {l_gn}")
+    check(fb.calls == 2 * n_mla, f"{where}: {fb.calls} flash backward "
+                                 f"calls in 2 steps, want {2 * n_mla}")
+    # _flash_bwd(causal, q_offset, chunk, (q, k, v, out, lse), dout)
+    q, _, v = fb.first[0][3][:3]
+    q_shape = tuple(q.shape)
+    check(q_shape[-1] == cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+          and v.shape[-1] == cfg.v_head_dim,
+          f"{where}: the flash backward saw q {q_shape}")
+    out["long"] = dict(tokens=long_len, losses=l_losses, grad_norms=l_gn,
+                       step_ms=l_ms, flash_backward_calls=fb.calls,
+                       bound=bound(1, long_len),
+                       max_memory_allocated=_peak(torch, dev))
+    del state, step_fn
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["checkpoint"] = checkpoint_round_trip(torch, TR, DP, CK, small_cfg,
+                                              dev, where)
+    say(where, **out)
+    return out
+
+
+def encdec_bounds(cfg, rows: int, enc: bool, dec_tokens: int, pairs: int,
+                  weight_bytes: int, cache_bytes: int) -> dict:
+    """The least time of whisper's ``rows`` encoder passes (``enc``) and
+    decoder over ``dec_tokens`` tokens a row attending to ``pairs`` self
+    pairs a layer and head: its weights and the caches it reads over the
+    memory rate, or its bf16 products over the tensor cores' peak.
+    Products: the encoder's 4 d^2 + 2 d F a frame and layer and its full
+    S_e^2 attention; the decoder's self and cross projections (the cross
+    K/V over the frames when ``enc``), its MLP, cross attention over the
+    frames and the tied head."""
+    d, F, L, Le = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.enc_layers
+    Se, hd, H = cfg.enc_seq, cfg.head_dim, cfg.num_heads
+    ops = 0
+    if enc:
+        ops += 2 * rows * Se * Le * (4 * d * d + 2 * d * F)
+        ops += 2 * 2 * rows * Le * H * hd * Se * Se
+        ops += 2 * rows * Se * L * 2 * d * d  # cross K/V
+    t = rows * dec_tokens
+    ops += 2 * t * (L * (6 * d * d + 2 * d * F) + cfg.vocab_size * d)
+    ops += 2 * 2 * rows * L * H * hd * (pairs + dec_tokens * Se)
+    bytes_ms = (weight_bytes + cache_bytes) / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_BF16_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "tflop": ops / 1e12}
+
+
+def encdec_features(torch, cfg, rows: int, seed: int, dev):
+    """Frame features [rows, enc_seq, d] bf16 from a seeded generator (the
+    stub frontend's output)."""
+    gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
+    gen.manual_seed(seed)
+    return torch.randn((rows, cfg.enc_seq, cfg.d_model), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+
+def lm_encdec_serve_phase(np, torch, ED, SE, cfg, dev, cpu_cfg) -> dict:
+    """whisper-medium at full width and depth (24 + 24 layers) served on
+    ``dev``: ``generate`` with features [2, enc_seq, d] and prompts of
+    ``LM_PROMPT`` tokens, ``LM_MAX_NEW`` new: every served token the
+    teacher-forced ``decode_stack``'s argmax over the whole sequence or
+    within ``LM_GAP`` of it (>= 75% the argmax); the encoder, prefill and
+    decode ms beside their bounds; the reduced config on the card against
+    the CPU."""
+    where = "lm_encdec_serve"
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = ED.init_encdec(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params)
+    rows = LM_SLOTS
+    rng = np.random.default_rng(0)
+    feats = encdec_features(torch, cfg, rows, 0, dev)
+    prompt = rng.integers(0, cfg.vocab_size, (rows, LM_PROMPT)
+                          ).astype(np.int32)
+    SE.generate(model, cfg, prompt, 2, features=feats)  # warm-up
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    out_tok = SE.generate(model, cfg, prompt, LM_MAX_NEW, features=feats)
+    _sync(torch, dev)
+    gen_s = time.perf_counter() - t0
+    check(out_tok.shape == (rows, LM_PROMPT + LM_MAX_NEW),
+          f"{where}: generate gave {out_tok.shape}")
+    with torch.no_grad():
+        enc = ED.encode(model, cfg, feats, mode="prefill")
+        seq = torch.as_tensor(out_tok[:, :-1], device=dev)
+        n = seq.shape[1]
+        logits = ED.decode_stack(
+            model, cfg, seq, torch.arange(n, device=dev)[None].expand(rows, n),
+            enc, None, "prefill")[0].float()
+    check(bool(torch.isfinite(logits).all()), f"{where}: a teacher-forced "
+                                              "logit is not finite")
+    logits = logits[:, LM_PROMPT - 1:].cpu().numpy()
+    argmax = 0
+    for r in range(rows):
+        for t in range(LM_MAX_NEW):
+            got = int(out_tok[r, LM_PROMPT + t])
+            best = int(logits[r, t].argmax())
+            if got == best:
+                argmax += 1
+            else:
+                gap = float(logits[r, t, best] - logits[r, t, got])
+                check(gap < LM_GAP, f"{where}: row {r} token {t} is {got}, "
+                                    f"the argmax {best} is {gap} above it")
+    check(argmax >= 0.75 * rows * LM_MAX_NEW,
+          f"{where}: {argmax} served tokens are the argmax")
+
+    # ---- times beside their bounds ----
+    s_max = LM_PROMPT + LM_MAX_NEW
+    prefill = SE.make_prefill_step(cfg)
+    decode = SE.make_decode_step(cfg)
+    toks = torch.as_tensor(prompt, device=dev)
+    enc_bytes = sum(p.numel() * p.element_size()
+                    for p in model.encoder.parameters())
+    cross_bytes = 2 * cfg.num_layers * rows * cfg.enc_seq * cfg.d_model * 2
+    encoder_ms = median_ms(torch, dev, lambda: ED.encode(
+        model, cfg, feats, mode="prefill"))
+    holder = {}
+
+    def run_prefill():
+        holder["caches"] = prefill(model, {"tokens": toks, "features": feats},
+                                   ED.init_dec_cache(cfg, rows, s_max, dev))[1]
+    prefill_ms = median_ms(torch, dev, run_prefill)
+    tok = torch.as_tensor(out_tok[:, LM_PROMPT:LM_PROMPT + 1], device=dev)
+
+    def step():
+        logits, holder["caches"] = decode(model, tok, holder["caches"])
+        return logits
+    run_prefill()  # then 1 + reps steps fit the cache's LM_MAX_NEW
+    decode_ms = median_ms(torch, dev, step, reps=LM_MAX_NEW - 2)
+    self_kv = 2 * cfg.num_layers * rows * s_max * cfg.d_model * 2
+    dec_bytes = weight_bytes - enc_bytes - model.dec_pos.numel() * 2
+    bounds = {
+        "encoder": encdec_bounds(cfg, rows, True, 0, 0, enc_bytes, 0),
+        "prefill": encdec_bounds(cfg, rows, True, LM_PROMPT,
+                                 LM_PROMPT * (LM_PROMPT + 1) // 2,
+                                 weight_bytes - model.dec_pos.numel() * 2,
+                                 cross_bytes),
+        "decode": encdec_bounds(cfg, rows, False, 1, s_max, dec_bytes,
+                                cross_bytes + self_kv)}
+    profiles = {}
+    if dev.type == "cuda":  # (the prefill leaves a fresh cache to decode)
+        profiles["prefill"] = device_profile(torch, run_prefill)
+        profiles["decode_x3"] = device_profile(
+            torch, lambda: [step() for _ in range(3)])
+    out = dict(arch=cfg.name, enc_layers=cfg.enc_layers,
+               dec_layers=cfg.num_layers, enc_seq=cfg.enc_seq,
+               weight_bytes=weight_bytes, init_s=init_s, rows=rows,
+               prompt=LM_PROMPT, max_new=LM_MAX_NEW, generate_s=gen_s,
+               tokens_per_s=rows * LM_MAX_NEW / gen_s,
+               argmax_share=argmax / (rows * LM_MAX_NEW),
+               encoder_ms=encoder_ms, prefill_ms=prefill_ms,
+               decode_ms=decode_ms, bounds=bounds,
+               profiles=profiles or "not measured",
+               max_memory_allocated=_peak(torch, dev))
+    del model, holder, enc, feats
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- the reduced config on the card against the CPU ----
+    host = ED.init_encdec(cpu_cfg, seed=0, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    f = encdec_features(torch, cpu_cfg, 2, 1, torch.device("cpu"))
+    t = torch.as_tensor(rng.integers(0, cpu_cfg.vocab_size, (2, LM_PROMPT)))
+    pos = torch.arange(LM_PROMPT)[None].expand(2, LM_PROMPT)
+    with torch.no_grad():
+        lc = ED.decode_stack(host, cpu_cfg, t, pos,
+                             ED.encode(host, cpu_cfg, f), None,
+                             "prefill")[0].float()
+        lg = ED.decode_stack(card, cpu_cfg, t.to(dev), pos.to(dev),
+                             ED.encode(card, cpu_cfg, f.to(dev)), None,
+                             "prefill")[0].float().cpu()
+    out["card_vs_cpu"] = float((lg - lc).abs().max() / lc.abs().max())
+    out["card_vs_cpu_tol"] = LM_CARD_TOL
+    check(out["card_vs_cpu"] <= LM_CARD_TOL,
+          f"{where}: {cpu_cfg.name} on the card is {out['card_vs_cpu']} of "
+          f"max|logit| from the CPU")
+    say(where, **out)
+    return out
+
+
+def lm_encdec_train_phase(np, torch, TR, OPT, DP, CK, TRL, cfg, dev,
+                          small_cfg) -> dict:
+    """whisper-medium at full width and depth trained on ``dev`` as
+    ``python -m repro_torch.launch.train --arch whisper-medium`` trains
+    it (AdamW, remat "full" a layer, batch 8 x seq 128, each step's
+    1,500 frame features from ``launch.train.step_features``, lr 3e-4
+    warmed up over 1 of 10 steps), then a checkpoint round trip of
+    ``small_cfg``."""
+    where = "lm_encdec_train"
+    out = {"arch": cfg.name, "enc_layers": cfg.enc_layers,
+           "dec_layers": cfg.num_layers, "remat": cfg.remat,
+           "optimizer": cfg.optimizer}
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = TR.init_state(cfg, seed=0, device=dev)
+    _sync(torch, dev)
+    out["init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    schedule = OPT.cosine_schedule(LM_TRAIN_LR,
+                                   warmup=max(LM_TRAIN_STEPS // 10, 1),
+                                   total=LM_TRAIN_STEPS)
+    step_fn = TR.make_train_step(cfg, schedule=schedule)
+    pipe = DP.DataPipeline(DP.SyntheticSource(cfg.vocab_size, LM_TRAIN_SEQ),
+                           LM_TRAIN_BATCH)
+
+    def batch(i):
+        b = pipe.next_batch()
+        b["features"] = TRL.step_features(cfg, i, LM_TRAIN_BATCH, dev)
+        return b
+    state, losses, gnorms, ms = _train_steps(
+        torch, TR, state, step_fn, [batch(i) for i in range(LM_TRAIN_STEPS)],
+        dev)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{where}: loss {losses} grad norm {gnorms}")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"{where}: the mean loss of the last 3 steps {losses[-3:]} is not "
+          f"below the first step's {losses[0]}")
+    fwd = encdec_bounds(cfg, LM_TRAIN_BATCH, True, LM_TRAIN_SEQ,
+                        LM_TRAIN_SEQ * (LM_TRAIN_SEQ + 1) // 2, 0, 0)
+    ops_ms = 4 * fwd["ops_ms"]  # forward, backward 2x, remat's forward
+    bytes_ms = LM_TRAIN_OPT_BYTES * n_params / H100_BYTES_PER_S * 1e3
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    out.update(parameters=n_params, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+               frames=cfg.enc_seq, steps=LM_TRAIN_STEPS, losses=losses,
+               grad_norms=gnorms, step_ms=ms, step_ms_median=steady,
+               tokens_per_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / steady * 1e3,
+               bound={"bound_ms": ops_ms + bytes_ms, "ops_ms": ops_ms,
+                      "bytes_ms": bytes_ms, "tflop": 4 * fwd["tflop"]})
+    if dev.type == "cuda":
+        held = {"state": state}
+
+        def profiled():
+            held["state"], m = step_fn(held["state"],
+                                       batch(LM_TRAIN_STEPS))
+            return m
+        out["profile"] = device_profile(torch, profiled)
+        state = held.pop("state")
+    out["max_memory_allocated"] = _peak(torch, dev)
+    del state, step_fn
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["checkpoint"] = checkpoint_round_trip(
+        torch, TR, DP, CK, small_cfg, dev, where,
+        features=lambda i, rows: TRL.step_features(small_cfg, i, rows, dev))
+    say(where, **out)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3269,7 +4012,9 @@ def main() -> int:
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
         from repro_torch.launch import mesh as MS
+        from repro_torch.launch import train as TRL
         from repro_torch.models import attention as TA
+        from repro_torch.models import encdec as ED
         from repro_torch.models import layers as LY
         from repro_torch.models import moe as MOE
         from repro_torch.models import moe_a2a as A2A
@@ -3745,8 +4490,9 @@ def main() -> int:
     # ---- 20. the dense LM served at full width (no SpMV kernel on it) ----
     t_phase = time.perf_counter()
     K.reset_launch_counts()
-    lm_serve_phase(np, torch, T, TA, LY, SE, get_config(LM_ARCH), dev,
-                   LM_LONG, cpu_cfg=get_config(LM_ARCH).reduced())
+    lm_cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    lm_serve_phase(np, torch, T, TA, LY, SE, lm_cfg, dev, LM_LONG,
+                   cpu_cfg=get_config(LM_ARCH).reduced())
     check(not any(K.spmv_partials.launches_by_form.values()),
           "lm_serve launched an SpMV kernel")
     phase_s["lm_serve"] = time.perf_counter() - t_phase
@@ -3754,7 +4500,7 @@ def main() -> int:
     # ---- 21. the dense LM trained at full width (no SpMV kernel on it) ----
     t_phase = time.perf_counter()
     K.reset_launch_counts()
-    lm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, get_config(LM_ARCH),
+    lm_train_phase(np, torch, T, TA, TR, OPT, DP, CK, lm_cfg,
                    dev, LM_LONG, dataclasses.replace(
                        get_config(LM_ARCH).reduced(), num_layers=8))
     check(not any(K.spmv_partials.launches_by_form.values()),
@@ -3785,12 +4531,15 @@ def main() -> int:
           "moe_a2a launched an SpMV kernel")
     phase_s["moe_a2a"] = time.perf_counter() - t_phase
 
-    # ---- 25-27. the SSM and hybrid families at full width and depth (no
-    # SpMV kernel on them) ----
+    # ---- 25-27. the SSM and hybrid families at full width, depth cut to
+    # SSM_LAYERS (no SpMV kernel on them) ----
+    def ssm_cfg(arch):
+        return dataclasses.replace(get_config(arch),
+                                   num_layers=SSM_LAYERS[arch])
     for arch in SSM_ARCHS:
         t_phase = time.perf_counter()
         K.reset_launch_counts()
-        lm_ssm_serve_phase(np, torch, T, TA, SSM, SE, get_config(arch), dev,
+        lm_ssm_serve_phase(np, torch, T, TA, SSM, SE, ssm_cfg(arch), dev,
                            LM_LONG, ssm_small_cfg(get_config(arch), 2))
         check(not any(K.spmv_partials.launches_by_form.values()),
               f"lm_ssm_serve {arch} launched an SpMV kernel")
@@ -3799,7 +4548,7 @@ def main() -> int:
         t_phase = time.perf_counter()
         K.reset_launch_counts()
         lm_ssm_train_phase(np, torch, T, TA, TR, OPT, DP, CK,
-                           get_config(arch), dev, LM_LONG,
+                           ssm_cfg(arch), dev, LM_LONG,
                            ssm_small_cfg(get_config(arch), 8))
         check(not any(K.spmv_partials.launches_by_form.values()),
               f"lm_ssm_train {arch} launched an SpMV kernel")
@@ -3812,9 +4561,35 @@ def main() -> int:
     check(not any(K.spmv_partials.launches_by_form.values()),
           "ssd_seq_parallel launched an SpMV kernel")
     phase_s["ssd_seq_parallel"] = time.perf_counter() - t_phase
+
+    # ---- 28-31. MLA and MTP (deepseek-v3), the encoder-decoder (whisper)
+    # at full width (no SpMV kernel on them) ----
+    mla_cfg = get_config(MLA_ARCH)
+    lm_phases = (
+        ("lm_mla_serve", lambda: lm_mla_serve_phase(
+            np, torch, T, TA, LY, MOE, SE, dataclasses.replace(
+                mla_cfg, num_layers=MLA_SERVE_LAYERS), dev, LM_LONG,
+            mla_cfg.reduced())),
+        ("lm_mla_train", lambda: lm_mla_train_phase(
+            np, torch, T, TA, TR, OPT, DP, CK, dataclasses.replace(
+                mla_cfg, num_layers=MLA_TRAIN_LAYERS), dev, LM_LONG,
+            dataclasses.replace(mla_cfg.reduced(), num_layers=8))),
+        ("lm_encdec_serve", lambda: lm_encdec_serve_phase(
+            np, torch, ED, SE, get_config(ENCDEC_ARCH), dev,
+            get_config(ENCDEC_ARCH).reduced())),
+        ("lm_encdec_train", lambda: lm_encdec_train_phase(
+            np, torch, TR, OPT, DP, CK, TRL, get_config(ENCDEC_ARCH), dev,
+            get_config(ENCDEC_ARCH).reduced())))
+    for name, run in lm_phases:
+        t_phase = time.perf_counter()
+        K.reset_launch_counts()
+        run()
+        check(not any(K.spmv_partials.launches_by_form.values()),
+              f"{name} launched an SpMV kernel")
+        phase_s[name] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 25. kernels line, card, last line ----
+    # ---- 32. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 

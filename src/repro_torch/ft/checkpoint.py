@@ -12,7 +12,8 @@ host at once and writes on a background thread (at most one write in
 flight); ``restore(device=...)`` puts every leaf on ``device`` as a
 tensor.  Trees are dicts, tuples, lists and NamedTuples of tensors or
 arrays.  A NamedTuple is rebuilt only if its type is registered here:
-the LM cache types (``KVCache``, ``LayerCache``) and the training state
+the LM cache types (``KVCache``, ``LayerCache``, ``SSMCache``, the
+encoder-decoder's ``DecLayerCache``) and the training state
 (``TrainState``, ``AdamWState``, ``AdafactorState``), of the JAX
 package's registry; any other, an engine state among them, restores as a
 dict of its fields, as it does there.  A training checkpoint holds the
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.attention import KVCache
+from repro_torch.models.encdec import DecLayerCache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.models.transformer import LayerCache
 from repro_torch.train.optimizer import AdafactorState, AdamWState
@@ -90,12 +92,12 @@ def _tree_structure(tree):
     return {"__kind__": "leaf"}
 
 
-# NamedTuple types restore() rebuilds; an unregistered one comes back as a
-# dict of its fields.  The JAX package's registry also holds the
-# encoder-decoder cache type; it joins with its slice (item 14 slice 5).
+# NamedTuple types restore() rebuilds (the JAX package's registry); an
+# unregistered one comes back as a dict of its fields.  A ``None`` field
+# (MLA's ``KVCache.v``) is kept as such.
 NAMED_TUPLES: dict[str, type] = {
-    c.__name__: c for c in (KVCache, LayerCache, SSMCache, TrainState,
-                            AdamWState, AdafactorState)}
+    c.__name__: c for c in (KVCache, LayerCache, SSMCache, DecLayerCache,
+                            TrainState, AdamWState, AdafactorState)}
 
 
 def _rebuild(struct, leaves: dict, prefix=""):

@@ -7,6 +7,10 @@ are random, drawn from a seeded generator on the device.
 
   python -m repro_torch.launch.serve --arch qwen3-4b --no-reduced
   python -m repro_torch.launch.serve --device cpu --requests 6
+
+An encoder-decoder config is refused, as the reference's launcher refuses
+it: the slot server admits tokens only (``serve.engine.generate`` takes
+an encoder's ``features``).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    assert not cfg.encdec, "use generate(features=...) for enc-dec serving"
     model = T.init_lm(cfg, seed=0, device=device)
 
     print(f"[serve] {cfg.name}: {args.requests} requests, "

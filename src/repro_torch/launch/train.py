@@ -3,7 +3,11 @@
 Counterpart of ``repro.launch.train`` with the same options, plus
 ``--device`` (default ``cuda``; without a card it exits, there is no CPU
 fallback).  The weights are random, drawn from a seeded generator on the
-device; batches come from the seeded ``SyntheticSource``.
+device; batches come from the seeded ``SyntheticSource``.  An
+encoder-decoder config (whisper) also takes each step's ``[batch,
+enc_seq, d_model]`` bf16 frame features, drawn from a ``torch.Generator``
+seeded with the step's index (the reference folds the step into its key),
+so a resumed run draws what an uninterrupted one does.
 
   python -m repro_torch.launch.train --arch qwen3-4b
   python -m repro_torch.launch.train --arch qwen3-4b --reduced --steps 3 \
@@ -20,6 +24,8 @@ import argparse
 import dataclasses
 import sys
 import time
+
+import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_config
@@ -48,6 +54,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the CUDA card)")
     return ap
+
+
+def step_features(cfg, step: int, batch: int,
+                  device: torch.device) -> torch.Tensor:
+    """The encoder's input of step ``step``: standard normal frame
+    features [batch, enc_seq, d_model] in bf16."""
+    gen = torch.Generator(device=device if device.type == "cuda" else "cpu")
+    gen.manual_seed(step)
+    return torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=gen,
+                       device=device).to(torch.bfloat16)
 
 
 def main(argv=None) -> dict:
@@ -92,7 +108,10 @@ def main(argv=None) -> dict:
     start = int(state.step)
     losses = {}
     for i in range(start, args.steps):
-        state, metrics = step_fn(state, pipe.next_batch())
+        batch = pipe.next_batch()
+        if cfg.encdec:
+            batch["features"] = step_features(cfg, i, args.batch, device)
+        state, metrics = step_fn(state, batch)
         losses[i] = metrics["loss"]
         if i % 10 == 0 or i == args.steps - 1:
             loss = float(metrics["loss"])  # waits for the device

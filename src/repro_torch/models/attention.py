@@ -1,5 +1,6 @@
-"""GQA/MQA attention with a KV cache: train, prefill and decode (the
-counterpart of the non-MLA half of ``repro.models.attention``).
+"""Attention flavours with a KV cache: GQA/MQA, sliding-window, MLA and
+cross-attention, in train, prefill and decode (the counterpart of
+``repro.models.attention``).
 
 Three execution paths for causal attention, chosen by shape:
   * dense masked attention — sequences up to ``FLASH_THRESHOLD``, and
@@ -30,6 +31,20 @@ the slot server): decode writes each row at its own position (its own
 ring slot) and masks each row by its own length (its own filled share
 of the ring, its own window).  Prefill and decode write K/V into the cache
 tensors in place and return a cache holding them with the new ``pos``.
+
+MLA (deepseek-v3, ``cfg.use_mla``) caches the compressed stream: one
+packed ``[B, S, kv_lora + rope]`` bf16 row a position (``KVCache.v`` is
+``None``).  Train and prefill materialise per-head K/V from it (the rope
+key broadcast over the heads; dense up to ``FLASH_THRESHOLD``, flash
+above, with q and k 192 wide and v 128); decode is the absorbed fp32
+form: ``q_nope`` folded through ``k_up``, scores taken against the
+compressed rows and the rope rows, the context lifted through ``v_up``.
+Decode writes each row at its own ``pos`` and masks it to its own
+length, as the GQA cache does.
+
+Cross-attention (the encoder-decoder's, ``cross_kv``) projects only the
+queries and attends without a mask to the given K/V; ``causal=False``
+(the encoder) attends without a mask to the layer's own K/V.
 """
 from __future__ import annotations
 
@@ -54,6 +69,21 @@ NEG_INF = -1e30
 def init_attention(gen: torch.Generator, cfg: ModelConfig,
                    device=None) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
+    if cfg.use_mla:
+        H, r, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+        return {
+            "q_down": mk(gen, (d, cfg.q_lora_rank), device=device),
+            "q_down_norm": torch.ones((cfg.q_lora_rank,),
+                                      dtype=torch.float32, device=device),
+            "q_up": mk(gen, (cfg.q_lora_rank, H * (dn + dr)), device=device),
+            "kv_down": mk(gen, (d, r + dr), device=device),
+            "kv_down_norm": torch.ones((r,), dtype=torch.float32,
+                                       device=device),
+            "k_up": mk(gen, (r, H * dn), device=device),
+            "v_up": mk(gen, (r, H * dv), device=device),
+            "w_o": mk(gen, (H * dv, d), device=device),
+        }
     p = {
         "w_q": mk(gen, (d, cfg.num_heads * hd), device=device),
         "w_k": mk(gen, (d, cfg.num_kv_heads * hd), device=device),
@@ -70,16 +100,21 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 # Caches
 # ======================================================================
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [B, S_max, Hkv, hd]
-    v: torch.Tensor
+    k: torch.Tensor  # [B, S_max, Hkv, hd]   (MLA: [B, S_max, kv_lora+rope])
+    v: Optional[torch.Tensor]  # None for MLA (the cache is compressed)
     pos: torch.Tensor  # int32: scalar (uniform batch) or [B] (per row)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
                   device=None, window: int = 0) -> KVCache:
     """A zero cache of ``s_max`` positions, ``min(s_max, window)`` for a
-    sliding-window layer."""
+    sliding-window layer; MLA's is the packed compressed stream."""
     s = min(s_max, window) if window else s_max
+    if cfg.use_mla:
+        c = torch.zeros((batch, s, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                        dtype=torch.bfloat16, device=device)
+        return KVCache(c, None, torch.zeros((), dtype=torch.int32,
+                                            device=device))
     shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
                    torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -277,20 +312,33 @@ def attention_layer(
     layer_window: int = 0,  # 0 = global; > 0 = sliding window
     cache: Optional[KVCache] = None,  # decode/prefill cache
     mode: str = "train",  # train | prefill | decode
+    cross_kv: Optional[tuple] = None,  # (k, v) for cross-attention
+    causal: bool = True,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
+    if cfg.use_mla:
+        return _mla_layer(p, cfg, x, positions, cache=cache, mode=mode)
     B, S, D = x.shape
     hd = cfg.head_dim
     q = (x @ p["w_q"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ p["w_k"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ p["w_v"]).reshape(B, S, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+    if cross_kv is None:
+        k = (x @ p["w_k"]).reshape(B, S, cfg.num_kv_heads, hd)
+        v = (x @ p["w_v"]).reshape(B, S, cfg.num_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = apply_rope(q, positions, fraction=cfg.rope_fraction,
+                       theta=cfg.rope_theta)
+        k = apply_rope(k, positions, fraction=cfg.rope_fraction,
+                       theta=cfg.rope_theta)
+    else:
+        k, v = cross_kv
+        causal = False
 
     new_cache = None
-    if mode == "decode":
+    if not causal:  # the encoder, or cross-attention: no mask
+        out = dense_attention(q, k, v, torch.ones(
+            (1, 1, 1, S, k.shape[1]), dtype=torch.bool, device=x.device))
+    elif mode == "decode":
         if cache is None:
             raise ValueError("decode needs a KV cache")
         kc, vc, pos = cache
@@ -355,3 +403,88 @@ def _prefill_attention(q, k, v, layer_window: int, S: int) -> torch.Tensor:
         mask = mask & (pos[:, None] - pos[None, :] < layer_window
                        )[None, None, None]
     return dense_attention(q, k, v, mask)
+
+
+# ======================================================================
+# MLA (deepseek-v3)
+# ======================================================================
+def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope [B,S,H,dn], q_rope [B,S,H,dr], c_kv [B,S,r], k_rope
+    [B,S,dr]): the low-rank q, the normed compressed kv and the
+    decoupled rope key (one for all heads)."""
+    B, S, _ = x.shape
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    r = cfg.kv_lora_rank
+    cq = rms_norm(x @ p["q_down"], p["q_down_norm"], cfg.norm_eps)
+    q = (cq @ p["q_up"]).reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, theta=cfg.rope_theta)
+    ckv_full = x @ p["kv_down"]  # [B, S, r + dr]
+    c_kv = rms_norm(ckv_full[..., :r], p["kv_down_norm"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., r:][:, :, None, :], positions,
+                        theta=cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_write(cache: KVCache, packed: torch.Tensor) -> torch.Tensor:
+    """Write the packed rows [B, S, r + dr] of a decode step into the
+    compressed cache in place, each row at its own ``pos``; returns the
+    key mask [B or 1, 1, 1, S_max]: each row's written positions."""
+    ck, pos = cache.k, cache.pos
+    B, S = packed.shape[:2]
+    steps = torch.arange(S, device=ck.device)
+    kv_pos = torch.arange(ck.shape[1], device=ck.device)
+    if pos.ndim == 0:
+        ck.index_copy_(1, pos + steps, packed)
+        return (kv_pos < pos + S)[None, None, None]
+    rows = torch.arange(B, device=ck.device)[:, None]
+    ck[rows, pos[:, None] + steps] = packed
+    return (kv_pos[None, :] < (pos + S)[:, None])[:, None, None]
+
+
+def _mla_layer(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+               *, cache: Optional[KVCache], mode: str
+               ) -> tuple[torch.Tensor, Optional[KVCache]]:
+    B, S, D = x.shape
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dv, r = cfg.v_head_dim, cfg.kv_lora_rank
+    f32 = torch.float32
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a KV cache")
+        packed = torch.cat([c_kv, k_rope], dim=-1).to(cache.k.dtype)
+        mask = _mla_write(cache, packed)
+        new_cache = KVCache(cache.k, None, cache.pos + S)
+        ckv_all = cache.k[..., :r].to(f32)
+        kr_all = cache.k[..., r:].to(f32)
+        # absorbed: q' = q_nope @ k_up^T per head -> [B, S, H, r] (bf16)
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope,
+                             p["k_up"].reshape(r, H, dn))
+        scale = float(np.float32(1.0 / math.sqrt(dn + dr)))
+        s = (torch.einsum("bshr,btr->bhst", q_abs.to(f32), ckv_all)
+             + torch.einsum("bshd,btd->bhst", q_rope.to(f32), kr_all)) * scale
+        s = torch.where(mask, s, NEG_INF)
+        pr = torch.softmax(s, dim=-1)
+        # the context in the compressed space, lifted through v_up
+        ctx = torch.einsum("bhst,btr->bshr", pr, ckv_all)
+        out = torch.einsum("bshr,rhd->bshd", ctx,
+                           p["v_up"].reshape(r, H, dv).to(f32))
+        out = out.reshape(B, S, H * dv).to(x.dtype)
+        return out @ p["w_o"], new_cache
+
+    # train / prefill: per-head K/V materialised from the compressed stream
+    k_nope = (c_kv @ p["k_up"]).reshape(B, S, H, dn)
+    v = (c_kv @ p["v_up"]).reshape(B, S, H, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    new_cache = None
+    if mode == "prefill" and cache is not None:
+        if cache.k.shape[1] < S:
+            raise ValueError(f"a prompt of {S} tokens does not fit a "
+                             f"cache of {cache.k.shape[1]} positions")
+        cache.k[:, :S] = torch.cat([c_kv, k_rope], dim=-1).to(cache.k.dtype)
+        new_cache = KVCache(cache.k, None, torch.full_like(cache.pos, S))
+    out = _prefill_attention(q, k, v, 0, S)
+    return out.reshape(B, S, H * dv) @ p["w_o"], new_cache

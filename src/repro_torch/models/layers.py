@@ -31,18 +31,32 @@ def f32_recip(v: float) -> float:
     return float(np.float32(1.0) / np.float32(v))
 
 
+DRAW_PIECE = 1 << 26  # elements of a leaf drawn at once (256 MiB in fp32)
+
+
 def mk(gen: torch.Generator, shape: Sequence[int],
        scale: Optional[float] = None, dtype=PARAM_DTYPE,
        device=None) -> torch.Tensor:
     """A normal(0, scale) draw in fp32 cast to ``dtype``; the default
-    scale is ``1/sqrt(fan_in)`` (``shape[0]``)."""
+    scale is ``1/sqrt(fan_in)`` (``shape[0]``).  A leaf of more than
+    ``DRAW_PIECE`` elements is drawn in pieces along dim 0, so its fp32
+    draw is never whole (deepseek's ``[256, 7168, 2048]`` expert leaf
+    would take 15 GB)."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0]) if len(shape) > 1 else 1.0
+    shape = tuple(shape)
     if len(shape) == 0 or scale == 0.0:
-        return torch.zeros(tuple(shape), dtype=dtype, device=device)
-    v = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=device)
-    return (v * scale).to(dtype)
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if math.prod(shape) <= DRAW_PIECE:
+        v = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (v * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_PIECE // (math.prod(shape) // shape[0]))
+    for piece in out.split(rows, 0):
+        piece.copy_(torch.randn(piece.shape, generator=gen,
+                                dtype=torch.float32, device=device) * scale)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -119,6 +133,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     o2 = x1 * sin + x2 * cos
     out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
     return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+def sinusoidal_positions(num_pos: int, dim: int,
+                         device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute embeddings [num_pos, dim] fp32:
+    ``sin`` then ``cos`` of ``p * exp(-ln(10000) i / (dim/2 - 1))``.
+
+    The frequencies are bitwise the jitted reference's: XLA folds the two
+    constants into one (rounded once) and, on the CPU, runs its own
+    ``exp`` (``ssm._exp`` spells it; on CUDA both take the device's).
+    ``sin`` and ``cos`` are torch's: XLA's CPU ones are another
+    approximation, one float32 ulp off on a share of the entries."""
+    from repro_torch.models.ssm import _exp  # (ssm imports this module)
+    half = dim // 2
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    inv = _exp(i * float(np.float32(-math.log(10000.0) / max(half - 1, 1))))
+    ang = (torch.arange(num_pos, dtype=torch.float32, device=device)[:, None]
+           * inv[None, :])
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ----------------------------------------------------------------------

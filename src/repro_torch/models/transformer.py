@@ -27,20 +27,20 @@ trains.  The serving steps (``serve/engine.py``) run under
 ``torch.no_grad()``, so a model the trainer has unfrozen still serves
 without a graph.
 
-The families ported: dense (every layer sliding-window when
+The families: dense (every layer sliding-window when
 ``attn_type == "swa"``); MoE (an optional stack of ``first_k_dense``
 dense layers, then a stack of MoE layers whose block runs
 ``models/moe.py``; the router's aux loss is summed over the layers into
-``forward``'s and ``lm_loss``'s ``aux``); SSM (mamba2: one stack of SSD
+``forward``'s and ``lm_loss``'s ``aux``; deepseek-v3's layers run MLA,
+``models/attention.py``, and its MTP head, :class:`MTP`, adds the
+loss of the token after next to ``lm_loss``); SSM (mamba2: one stack of SSD
 blocks, ``models/ssm.py``, no attention and no KV cache); hybrid (hymba:
 attention and SSD heads in parallel in each block, global attention in
 layers 0, L/2 and L-1 and a sliding window elsewhere, so the stack is
 never stacked: its layers' caches differ in length).  :func:`param_axes`
 gives the reference's logical-axes tree (``split_params(init_lm(...))[1]``),
 which ``dist/sharding.py::ShardingRules`` resolves and the optimizers'
-``state_axes`` map.  :func:`build_plan` raises ``NotImplementedError`` for
-MLA, MTP and encoder-decoder configs, naming the ROADMAP slice that ports
-them.
+``state_axes`` map.  The encoder-decoder (whisper) is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -84,20 +84,7 @@ class ModelPlan:
     stacks: tuple
 
 
-def _unported(cfg: ModelConfig) -> Optional[str]:
-    """What of ``cfg`` this package does not run yet, and the slice of
-    ROADMAP queue 1 item 14 that ports it."""
-    if cfg.encdec:
-        return "encoder-decoder waits for item 14 slice 5"
-    if cfg.use_mla or cfg.mtp_depth:
-        return "MLA and MTP wait for item 14 slice 4"
-    return None
-
-
 def build_plan(cfg: ModelConfig) -> ModelPlan:
-    missing = _unported(cfg)
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {missing} (ROADMAP.md)")
     L = cfg.num_layers
     if cfg.family == "ssm":
         return ModelPlan((StackPlan("ssm", L, (0,) * L, L >= MIN_SCAN, 0),))
@@ -143,7 +130,8 @@ def _stack_cache(per: LayerCache, n: int) -> LayerCache:
     """``n`` copies of a layer's cache as ``[n, ...]`` tensors."""
     def stacked(c):
         return None if c is None else type(c)(
-            *(t.expand((n,) + t.shape).clone() for t in c))
+            *(None if t is None else t.expand((n,) + t.shape).clone()
+              for t in c))
     return LayerCache(stacked(per.kv), stacked(per.ssm))
 
 
@@ -251,11 +239,10 @@ class StackedBlocks(Block):
         return self.layers()[i]
 
 
-def _stacked(layers, n: int) -> StackedBlocks:
-    """``n`` per-layer parameter dicts (``norm1``, ``attn``, ``norm2``,
-    ``mlp`` or ``moe``), taken one at a time from the iterable ``layers``,
-    copied into ``[n, ...]`` leaves (no second copy of the stack is ever
-    live)."""
+def stack_layers(layers, n: int) -> dict:
+    """``n`` per-layer parameter dicts (leaves and dicts of leaves), taken
+    one at a time from the iterable ``layers``, copied into ``[n, ...]``
+    leaves (no second copy of the stack is ever live)."""
     stacked = None
     for i, layer in enumerate(layers):
         if stacked is None:
@@ -266,17 +253,37 @@ def _stacked(layers, n: int) -> StackedBlocks:
                     stacked[key][k][i].copy_(v)
             else:
                 stacked[key][i].copy_(val)
-    return StackedBlocks(**stacked)
+    return stacked
+
+
+def _stacked(layers, n: int) -> StackedBlocks:
+    """A scan stack of ``n`` layers (``norm1``, ``attn``, ``norm2``,
+    ``mlp`` or ``moe``): :func:`stack_layers` as a :class:`StackedBlocks`."""
+    return StackedBlocks(**stack_layers(layers, n))
+
+
+class MTP(nn.Module):
+    """deepseek's multi-token-prediction head (depth 1): ``proj [2d, d]``
+    of the normed hidden state beside the next token's embedding, its
+    ``norm``, and one dense ``block`` (MLA attention, ``dense_d_ff``)."""
+
+    def __init__(self, proj: torch.Tensor, norm: torch.Tensor, block: dict):
+        super().__init__()
+        self.proj = _frozen(proj)
+        self.norm = _frozen(norm)
+        self.block = Block(**block)
 
 
 class LM(nn.Module):
     """The decoder LM: embedding, stacks of layers (a list of
-    :class:`Block` or one :class:`StackedBlocks`), final norm and the head
-    (the embedding's transpose when tied)."""
+    :class:`Block` or one :class:`StackedBlocks`), final norm, the head
+    (the embedding's transpose when tied) and, for ``cfg.mtp_depth``, the
+    :class:`MTP` head."""
 
     def __init__(self, cfg: ModelConfig, embed: torch.Tensor,
                  final_norm: torch.Tensor, stacks: list,
-                 head: Optional[torch.Tensor] = None):
+                 head: Optional[torch.Tensor] = None,
+                 mtp: Optional[dict] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = _frozen(embed)
@@ -285,6 +292,7 @@ class LM(nn.Module):
             s if isinstance(s, StackedBlocks) else nn.ModuleList(s)
             for s in stacks)
         self.head = None if head is None else _frozen(head)
+        self.mtp = None if mtp is None else MTP(**mtp)
 
     def forward(self, tokens, positions=None, mode: str = "train",
                 caches=None, compute_logits: bool = True):
@@ -333,7 +341,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     head = None
     if not cfg.tie_embeddings:
         head = mk(gen, (cfg.d_model, cfg.vocab_size), scale=0.02, device=dev)
-    return LM(cfg, embed, init_norm(cfg.d_model, dev), stacks, head)
+    mtp = None
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        mtp = {"proj": mk(gen, (2 * d, d), device=dev),
+               "norm": init_norm(d, dev),
+               "block": _init_layer(gen, cfg, "dense",
+                                    cfg.dense_d_ff or cfg.d_ff, dev)}
+    return LM(cfg, embed, init_norm(cfg.d_model, dev), stacks, head, mtp)
 
 
 def _tensor(a) -> torch.Tensor:
@@ -373,7 +388,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict,
         stacks.append(StackedBlocks(**layer(stack)) if sp.scan
                       else [Block(**layer(d)) for d in stack])
     head = t(tree["head"]) if "head" in tree else None
-    return LM(cfg, t(tree["embed"]), t(tree["final_norm"]), stacks, head)
+    mtp = None
+    if "mtp" in tree:
+        mtp = {"proj": t(tree["mtp"]["proj"]), "norm": t(tree["mtp"]["norm"]),
+               "block": layer(tree["mtp"]["block"])}
+    return LM(cfg, t(tree["embed"]), t(tree["final_norm"]), stacks, head,
+              mtp)
 
 
 def param_dict(model: LM) -> dict[str, torch.Tensor]:
@@ -444,10 +464,16 @@ def _block_axes(cfg: ModelConfig, kind: str) -> dict:
     calls name them."""
     if kind == "ssm":
         return {"norm1": (None,), "ssm": ssm_mod.ssm_axes()}
-    attn = {"w_q": ("fsdp", "q_proj"), "w_k": ("fsdp", "kv_proj"),
-            "w_v": ("fsdp", "kv_proj"), "w_o": ("q_proj", "fsdp")}
-    if cfg.qk_norm:
-        attn.update(q_norm=(None,), k_norm=(None,))
+    if cfg.use_mla:
+        attn = {"q_down": ("fsdp", "lora"), "q_down_norm": (None,),
+                "q_up": ("lora", "q_proj"), "kv_down": ("fsdp", "lora"),
+                "kv_down_norm": (None,), "k_up": ("lora", "q_proj"),
+                "v_up": ("lora", "q_proj"), "w_o": ("q_proj", "fsdp")}
+    else:
+        attn = {"w_q": ("fsdp", "q_proj"), "w_k": ("fsdp", "kv_proj"),
+                "w_v": ("fsdp", "kv_proj"), "w_o": ("q_proj", "fsdp")}
+        if cfg.qk_norm:
+            attn.update(q_norm=(None,), k_norm=(None,))
     block = {"norm1": (None,), "attn": attn, "norm2": (None,)}
     if kind == "hybrid":
         block.update(ssm=ssm_mod.ssm_axes(), norm_attn=(None,),
@@ -489,6 +515,9 @@ def param_axes(cfg: ModelConfig) -> dict:
             "stacks": tuple(stacks)}
     if not cfg.tie_embeddings:
         tree["head"] = ("fsdp", "vocab")
+    if cfg.mtp_depth:
+        tree["mtp"] = {"proj": ("fsdp", None), "norm": (None,),
+                       "block": _block_axes(cfg, "dense")}
     return tree
 
 
@@ -581,7 +610,8 @@ def apply_stacks(params: LM, cfg: ModelConfig, x: torch.Tensor,
             for li, blk in enumerate(blocks):
                 cl = LayerCache(
                     None if kv is None else attn_mod.KVCache(
-                        kv.k[li], kv.v[li], kv.pos[li]),
+                        kv.k[li], None if kv.v is None else kv.v[li],
+                        kv.pos[li]),
                     None if sc is None else ssm_mod.SSMCache(
                         sc.state[li], sc.conv[li]))
                 x, nc, aux = apply_block(blk, cfg, x, positions, mode, cl,
@@ -637,18 +667,39 @@ def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
 # ======================================================================
 # Training loss
 # ======================================================================
+MTP_WEIGHT = 0.3
+
+
 def lm_loss(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    """``(total, {"nll", "aux", "loss"})``: the chunked softmax
+    """``(total, {"nll", "aux", ["mtp",] "loss"})``: the chunked softmax
     cross-entropy of the final norm's output against ``labels`` plus the
-    aux loss (the MoE layers' router loss; 0 for a dense model).
-    deepseek's MTP head waits for item 14 slice 4 (``build_plan`` raises,
-    naming it)."""
-    build_plan(cfg)
+    aux loss (the MoE layers' router loss; 0 for a dense model), plus
+    ``MTP_WEIGHT`` times the MTP head's loss when the model has one: the
+    token after next predicted from ``(rms_norm(hidden_t),
+    embed(label_t))`` through its dense block (not rematerialised, as in
+    the reference), against the labels shifted by one, the last
+    repeated."""
     _, _, aux, hidden = forward(params, cfg, tokens, mode="train",
                                 compute_logits=False)
     head = params.embed.T if cfg.tie_embeddings else params.head
     h_norm = rms_norm(hidden, params.final_norm, cfg.norm_eps)
     loss = chunked_softmax_xent(h_norm, head, labels)
+    metrics = {"nll": loss, "aux": aux}
     total = loss + aux
-    return total, {"nll": loss, "aux": aux, "loss": total}
+    mp = params.mtp
+    if cfg.mtp_depth and mp is not None:
+        h = torch.cat([rms_norm(hidden, mp.norm, cfg.norm_eps),
+                       embed_tokens(params, cfg, labels)], dim=-1) @ mp.proj
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None, :].expand(
+            B, S)
+        h, _, _ = apply_block(mp.block, cfg, h, positions, "train",
+                              LayerCache(None, None))
+        h = rms_norm(h, params.final_norm, cfg.norm_eps)
+        mtp_labels = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+        mtp_loss = chunked_softmax_xent(h, head, mtp_labels)
+        metrics["mtp"] = mtp_loss
+        total = total + MTP_WEIGHT * mtp_loss
+    metrics["loss"] = total
+    return total, metrics

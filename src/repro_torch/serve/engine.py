@@ -10,9 +10,15 @@ mixed-length traffic.  The slot server keeps one cache position per slot
 mid-decode gets the tokens ``generate`` gives for its prompt alone.  The
 reference keeps one shared position and does not (ROADMAP.md §3).  A
 slot's row is every cache leaf's row: K/V (a sliding-window layer's ring
-is shorter than a global layer's cache), and the SSD's state and conv
-rows; an SSM model has no KV cache and no position (the SSD needs
-none).
+is shorter than a global layer's cache; MLA's is one packed compressed
+tensor, ``v`` None), and the SSD's state and conv rows; an SSM model has
+no KV cache and no position (the SSD needs none).
+
+The encoder-decoder (``cfg.encdec``, ``models/encdec.py``) has its own
+steps, as in the reference: prefill encodes ``batch["features"]`` and
+fills the decoder's cache, decode reads the cross K/V from it;
+``generate`` takes the ``features``.  The slot server does not serve it
+(the reference's admits tokens only, and its launcher refuses it).
 
 Serving builds no autograd graph: the steps, ``generate`` and the slot
 server run under ``torch.no_grad()``, so a model the trainer has
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as transformer_mod
 from repro_torch.models.transformer import LM, LayerCache
 
@@ -125,6 +132,13 @@ class AdmissionQueue:
 # LM serving
 # ======================================================================
 def make_prefill_step(cfg: ModelConfig) -> Callable:
+    if cfg.encdec:
+        @torch.no_grad()
+        def prefill(params, batch: dict, caches):
+            return encdec_mod.encdec_prefill(params, cfg, batch["features"],
+                                             batch["tokens"], caches)
+        return prefill
+
     @torch.no_grad()
     def prefill(params: LM, batch: dict, caches):
         logits, caches, _, _ = transformer_mod.forward(
@@ -134,6 +148,12 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
+    if cfg.encdec:
+        @torch.no_grad()
+        def decode(params, token: torch.Tensor, caches):
+            return encdec_mod.encdec_decode(params, cfg, token, caches)
+        return decode
+
     @torch.no_grad()
     def decode(params: LM, token: torch.Tensor, caches):
         pos = _cache_pos(caches)
@@ -176,22 +196,30 @@ def _cache_pos(caches) -> torch.Tensor:
 
 
 def init_caches(cfg: ModelConfig, batch: int, s_max: int, device=None):
+    if cfg.encdec:
+        return encdec_mod.init_dec_cache(cfg, batch, s_max, device)
     return transformer_mod.init_cache(cfg, batch, s_max, device)
 
 
 # ======================================================================
 @torch.no_grad()
-def generate(params: LM, cfg: ModelConfig, prompt, max_new: int,
+def generate(params, cfg: ModelConfig, prompt, max_new: int,
              s_max: Optional[int] = None, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> np.ndarray:
+             generator: Optional[torch.Generator] = None,
+             features=None) -> np.ndarray:
     """Greedy (or, with ``temperature > 0`` and a ``generator``, sampled)
-    decoding of ``prompt`` [B, S]: returns [B, S + max_new] on the host."""
+    decoding of ``prompt`` [B, S]: returns [B, S + max_new] on the host.
+    An encoder-decoder takes its encoder's input as ``features`` [B,
+    enc_seq, D]."""
     dev = params.embed.device
     prompt = torch.as_tensor(prompt, device=dev)
     B, S = prompt.shape
     caches = init_caches(cfg, B, s_max or (S + max_new), dev)
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    logits, caches = prefill(params, {"tokens": prompt}, caches)
+    batch = {"tokens": prompt}
+    if cfg.encdec:
+        batch["features"] = torch.as_tensor(features, device=dev)
+    logits, caches = prefill(params, batch, caches)
     tok = _sample(logits[:, -1], temperature, generator)[:, None]  # [B, 1]
     out = [tok]
     for _ in range(max_new - 1):
@@ -298,15 +326,17 @@ class SlotServer:
 
 def _write_slot(full_tree, one_tree, slot: int) -> None:
     """Copy a batch-of-1 cache into row ``slot`` of the slot server's
-    caches, in place: every K/V tensor's row and the slot's position, the
+    caches, in place: every K/V tensor's row (MLA's packed one) and the
+    slot's position, the
     SSD state's and conv's rows (the batch dim follows a stacked cache's
     layer dim)."""
     for (stacked, full), (_, one) in zip(_layer_caches(full_tree),
                                          _layer_caches(one_tree)):
         b = 1 if stacked else 0
         if full.kv is not None:
-            full.kv.k.select(b, slot).copy_(one.kv.k.select(b, 0))
-            full.kv.v.select(b, slot).copy_(one.kv.v.select(b, 0))
+            for f, o in zip(full.kv[:2], one.kv[:2]):
+                if f is not None:  # (MLA's v is None)
+                    f.select(b, slot).copy_(o.select(b, 0))
             full.kv.pos.select(b, slot).copy_(one.kv.pos)
         if full.ssm is not None:
             for f, o in zip(full.ssm, one.ssm):

@@ -19,7 +19,11 @@ for AdamW at qwen3-4b.  Here ``update`` writes the moments and the
 parameters in place, leaf by leaf, and AdamW and the clip walk each leaf
 in pieces of at most ``PIECE`` elements (elementwise, so the pieces give
 the reference's arithmetic), so only one piece's fp32 temporaries are
-live at a time.  ``update`` returns the same ``params`` and a state
+live at a time.  Adafactor walks a leaf of more than ``PIECE`` elements
+in pieces too (:meth:`Adafactor._update_in_pieces`; a leaf of at most
+``PIECE`` keeps the whole-leaf arithmetic): its whole-leaf fp32
+temporaries on deepseek-v3's ``[256, 7168, 2048]`` expert leaf would be
+15 GB each.  ``update`` returns the same ``params`` and a state
 holding the same moment tensors with the step advanced.
 
 ``state_axes`` maps the reference's logical-axes tree of the parameters
@@ -201,6 +205,9 @@ class Adafactor:
         beta2 = 1.0 - t ** -0.8  # Shazeer decay schedule
         eps = self.eps
         for k, p in params.items():
+            if p.numel() > PIECE:
+                self._update_in_pieces(p, grads[k], state, k, beta2, lr)
+                continue
             gf = grads[k].to(torch.float32)
             sq = torch.square(gf) + eps
             if _factored(p):
@@ -222,6 +229,85 @@ class Adafactor:
                 u = u + self.wd * p32
             p.copy_(p32 - lr * u)
         return params, AdafactorState(step, state.vr, state.vc, state.v)
+
+    def _update_in_pieces(self, p: torch.Tensor, g: torch.Tensor,
+                          state: AdafactorState, k: str, beta2, lr) -> None:
+        """The update of one leaf of more than ``PIECE`` elements, in
+        pieces: the moments, then the sum of ``u * u`` over the pieces
+        (the update's RMS is the whole leaf's), then the parameters (``u``
+        recomputed a piece at a time).  A factored leaf of three or more
+        dims is a stack of ``[R, C]`` matrices, each factored alone, so
+        its pieces are whole matrices and its moments exact; a two-dim
+        leaf is cut into rows, which its row moment ``vr`` follows exactly
+        and its column moment ``vc`` (a mean over the rows) gathers as a
+        sum over the pieces."""
+        eps, f32 = self.eps, torch.float32
+        if not _factored(p):
+            v = state.v[k]
+            for gi, vi in zip(_pieces(g), _pieces(v)):
+                vi.copy_(beta2 * vi + (1 - beta2)
+                         * (torch.square(gi.to(f32)) + eps))
+
+            def updates():
+                for gi, vi in zip(_pieces(g), _pieces(v)):
+                    yield gi.to(f32) / torch.sqrt(vi + eps)
+            self._apply(p, _pieces(p), updates, lr)
+            return
+        R, C = p.shape[-2:]
+        vr, vc = state.vr[k], state.vc[k]
+        if p.ndim == 2:  # row blocks; vc is a mean over every block
+            n = max(1, PIECE // C)
+            spans = [slice(i, i + n) for i in range(0, R, n)]
+            col = torch.zeros_like(vc)
+            for sl in spans:
+                sq = torch.square(g[sl].to(f32)) + eps
+                vr[sl].copy_(beta2 * vr[sl] + (1 - beta2) * _mean(sq, -1))
+                col.add_(torch.sum(sq, dim=-2))
+            vc.copy_(beta2 * vc + (1 - beta2) * (col * f32_recip(R)))
+            r_mean = _mean(vr, -1, True)
+
+            def denoms():
+                for sl in spans:
+                    yield sl, (vr[sl][..., None] / r_mean[..., None]
+                               ) * vc[..., None, :]
+            ps = [p[sl] for sl in spans]
+        else:  # whole [R, C] matrices of the flattened leading dims
+            p, g = p.view(-1, R, C), g.reshape(-1, R, C)
+            vr, vc = vr.view(-1, R), vc.view(-1, C)  # written in place
+            n = max(1, PIECE // (R * C))
+            spans = [slice(i, i + n) for i in range(0, p.shape[0], n)]
+            for sl in spans:
+                sq = torch.square(g[sl].to(f32)) + eps
+                vr[sl].copy_(beta2 * vr[sl] + (1 - beta2) * _mean(sq, -1))
+                vc[sl].copy_(beta2 * vc[sl] + (1 - beta2) * _mean(sq, -2))
+            r_mean = _mean(vr, -1, True)
+
+            def denoms():
+                for sl in spans:
+                    yield sl, (vr[sl][..., None] / r_mean[sl][..., None]
+                               ) * vc[sl][..., None, :]
+            ps = [p[sl] for sl in spans]
+
+        def updates():
+            for sl, denom in denoms():
+                yield g[sl].to(f32) / torch.sqrt(denom + eps)
+        self._apply(p, ps, updates, lr)
+
+    def _apply(self, p: torch.Tensor, pieces, updates, lr) -> None:
+        """Clip the update by its RMS over the whole leaf (a first pass
+        over ``updates()``), then write each piece of ``p``."""
+        ss = None
+        for u in updates():
+            s = torch.sum(u * u)
+            ss = s if ss is None else ss + s
+        rms = torch.sqrt(ss * f32_recip(p.numel()) + 1e-30)
+        scale = torch.clamp(rms / self.clip, min=1.0)
+        for pi, u in zip(pieces, updates()):
+            u = u / scale
+            p32 = pi.to(torch.float32)
+            if self.wd and p.ndim >= 2:
+                u = u + self.wd * p32
+            pi.copy_(p32 - lr * u)
 
     def state_axes(self, param_axes) -> AdafactorState:
         def vr_ax(ax):

@@ -13,8 +13,10 @@ metrics)``, the reference's step run eagerly on one device:
     (``train/optimizer.py``): the step reuses the parameter and moment
     tensors it is given, as the reference's donated buffers are.
 
-A :class:`TrainState` holds the model (an ``LM`` module: its
-``param_dict`` is the reference's parameter tree), the optimizer state
+A :class:`TrainState` holds the model (an ``LM`` module, or an
+``EncDec`` for an encoder-decoder config: its ``param_dict`` is the
+reference's parameter tree; the encoder-decoder's batches carry
+``features``), the optimizer state
 (moments keyed as ``param_dict``) and the step.  :func:`to_checkpoint`
 and :func:`from_checkpoint` map it to and from the reference's
 ``TrainState`` tree, which ``ft/checkpoint.py`` writes in the JAX
@@ -31,6 +33,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import compression as comp_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as transformer_mod
 from repro_torch.models.layers import f32_recip
 from repro_torch.train import optimizer as opt_mod
@@ -44,9 +47,10 @@ class TrainState(NamedTuple):
 
 def loss_fn_for(cfg: ModelConfig) -> Callable:
     if cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder loss waits for item 14 "
-            f"slice 5 (ROADMAP.md)")
+        def loss_fn(params, batch):
+            return encdec_mod.encdec_loss(params, cfg, batch["features"],
+                                          batch["tokens"], batch["labels"])
+        return loss_fn
 
     def loss_fn(params, batch):
         return transformer_mod.lm_loss(params, cfg, batch["tokens"],
@@ -56,9 +60,11 @@ def loss_fn_for(cfg: ModelConfig) -> Callable:
 
 def init_state(cfg: ModelConfig, seed: int = 0,
                device: DeviceLike = None) -> TrainState:
-    """Random weights from ``seed`` (``transformer.init_lm``) and the
-    config's optimizer at step 0, on ``device`` (``None``: the card)."""
-    model = transformer_mod.init_lm(cfg, seed, device)
+    """Random weights from ``seed`` (``transformer.init_lm``, or
+    ``encdec.init_encdec``) and the config's optimizer at step 0, on
+    ``device`` (``None``: the card)."""
+    init = encdec_mod.init_encdec if cfg.encdec else transformer_mod.init_lm
+    model = init(cfg, seed, device)
     opt = opt_mod.get_optimizer(cfg.optimizer)
     opt_state = opt.init(transformer_mod.param_dict(model))
     return TrainState(model, opt_state, torch.zeros(
@@ -70,7 +76,8 @@ def state_axes(cfg: ModelConfig) -> TrainState:
     second value of the reference's ``init_state``): the parameters'
     (``transformer.param_axes``), the optimizer state's, ``()`` for the
     step."""
-    axes = transformer_mod.param_axes(cfg)
+    axes = (encdec_mod.param_axes(cfg) if cfg.encdec
+            else transformer_mod.param_axes(cfg))
     opt = opt_mod.get_optimizer(cfg.optimizer)
     return TrainState(axes, opt.state_axes(axes), ())
 
@@ -181,6 +188,8 @@ def from_checkpoint(cfg: ModelConfig, tree,
     moments = {f: {k: v.to(dev) for k, v in
                    transformer_mod.from_tree(getattr(opt, f)).items()}
                for f in opt._fields if f != "step"}
+    from_numpy = (encdec_mod.params_from_numpy if cfg.encdec
+                  else transformer_mod.params_from_numpy)
     return TrainState(
-        transformer_mod.params_from_numpy(cfg, tree.params, dev),
+        from_numpy(cfg, tree.params, dev),
         type(opt)(step=opt.step.to(dev), **moments), tree.step.to(dev))

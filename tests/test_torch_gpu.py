@@ -857,3 +857,207 @@ def test_ssm_slot_server_on_card_matches_generate(cuda, arch, layers):
                              )[0][0, -1].float().cpu()
             assert abs(float(last[got[i]] - last[alone[len(r.prompt) + i]])
                        ) < LM_GAP, (r.rid, i)
+
+
+# ------------------------------------------- MLA and MTP; encoder-decoder
+def _mla(dev, **kw):
+    return _lm(dev, "deepseek-v3-671b", **kw)
+
+
+def _hold_rows(got, want, tol=5.0e-2, share=0.75):
+    """Logits [B, S, V]: at least ``share`` of the positions within
+    ``tol`` of max|logit| (the rest are routing flips at router near
+    ties), none off by more than the largest logit."""
+    per = (got - want).abs().amax(-1) / want.abs().max()
+    assert float((per <= tol).float().mean()) >= share, per
+    assert float(per.max()) <= 1.0, per
+
+
+@pytest.mark.parametrize("layers", [2, 9])
+def test_mla_logits_on_card_match_cpu(cuda, layers):
+    """The reduced deepseek (MLA, a dense and MoE layers; 9: a stacked
+    MoE stack and compressed cache): train and prefill logits, then 3
+    decode steps, the card against the CPU (``chip_smoke.py``'s rule for
+    the MoE family: 75% of the positions within 5e-2 of max|logit|)."""
+    from repro_torch.models import transformer as T
+    cfg, host, card = _mla(cuda, num_layers=layers, capacity_factor=16.0)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    hc, gc = T.init_cache(cfg, 2, 16, "cpu"), T.init_cache(cfg, 2, 16, cuda)
+    for mode in ("train", "prefill"):
+        lh, hc2, _, _ = T.forward(host, cfg, tokens, mode=mode,
+                                  caches=hc if mode == "prefill" else None)
+        lg, gc2, _, _ = T.forward(card, cfg, tokens.to(cuda), mode=mode,
+                                  caches=gc if mode == "prefill" else None)
+        _hold_rows(lg.float().cpu(), lh.float())
+    hs, gs = [], []
+    for t in range(3):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+        pos = torch.full((2, 1), 12 + t)
+        lh, hc2, _, _ = T.forward(host, cfg, tok, pos, "decode", hc2)
+        lg, gc2, _, _ = T.forward(card, cfg, tok.to(cuda), pos.to(cuda),
+                                  "decode", gc2)
+        hs.append(lh.float())
+        gs.append(lg.float().cpu())
+    _hold_rows(torch.cat(gs, 1), torch.cat(hs, 1), share=0.5)
+
+
+def test_mla_slot_server_on_card_matches_generate(cuda):
+    """5 requests on 2 slots, staggered, through the packed per-slot
+    compressed cache (no pair dropped: capacity factor 16): each equals
+    the card's ``generate`` of its prompt alone, or differs first at a
+    bf16 near tie under the card's full forward."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    cfg, _, card = _mla(cuda, capacity_factor=16.0)
+    rng = np.random.default_rng(3)
+    reqs = [SE.Request(rid, rng.integers(0, cfg.vocab_size, n)
+                       .astype(np.int32), m)
+            for rid, (n, m) in enumerate(zip([12, 9, 16, 10, 14],
+                                             [5, 3, 7, 4, 6]))]
+    server = SE.SlotServer(card, cfg, num_slots=2, s_max=31)
+    assert server.caches[0][0].kv.v is None
+    for r in reqs:
+        server.submit(r)
+    done = server.run()
+    for r in reqs:
+        got = done[r.rid]
+        alone = SE.generate(card, cfg, r.prompt[None], r.max_new)[0]
+        diff = np.flatnonzero(alone[len(r.prompt):] != got)
+        if diff.size:
+            i = int(diff[0])
+            prefix = np.concatenate([r.prompt, got[:i]])[None]
+            last = T.forward(card, cfg, torch.as_tensor(prefix, device=cuda)
+                             )[0][0, -1].float().cpu()
+            assert abs(float(last[got[i]] - last[alone[len(r.prompt) + i]])
+                       ) < LM_GAP, (r.rid, i)
+
+
+def test_mla_absorbed_decode_on_card_matches_cpu(cuda):
+    """One reduced MLA layer: a 12-token prefill, then 4 absorbed decode
+    steps (fp32 scores against the compressed and rope rows), the card
+    against the CPU within 1e-2 of max|out|, the packed caches within
+    one bf16 ulp."""
+    from repro_torch.models import attention as TA
+    cfg, host, card = _mla(cuda)
+    ph = dict(host.stacks[0][0].attn.items())
+    pg = dict(card.stacks[0][0].attn.items())
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model))
+                         ).to(torch.bfloat16)
+    pos = torch.arange(16)[None].expand(2, 16)
+    ch, cg = TA.init_kv_cache(cfg, 2, 16, "cpu"), TA.init_kv_cache(
+        cfg, 2, 16, cuda)
+    _, ch = TA.attention_layer(ph, cfg, x[:, :12], pos[:, :12], cache=ch,
+                               mode="prefill")
+    _, cg = TA.attention_layer(pg, cfg, x[:, :12].to(cuda),
+                               pos[:, :12].to(cuda), cache=cg, mode="prefill")
+    for t in range(12, 16):
+        oh, ch = TA.attention_layer(ph, cfg, x[:, t:t + 1], pos[:, t:t + 1],
+                                    cache=ch, mode="decode")
+        og, cg = TA.attention_layer(pg, cfg, x[:, t:t + 1].to(cuda),
+                                    pos[:, t:t + 1].to(cuda), cache=cg,
+                                    mode="decode")
+        assert (og.float().cpu() - oh.float()).abs().max() <= (
+            1e-2 * oh.float().abs().max())
+    assert cg.v is None and int(cg.pos) == 16
+    diff = (cg.k.float().cpu() - ch.k.float()).abs()
+    assert float(diff.max()) <= 2 ** -7 * float(ch.k.float().abs().max())
+
+
+def test_mla_flash_gradients_on_card_match_dense(cuda):
+    """MLA's shapes at 2,304 tokens: q and k 24 wide, v 16 (dv != hd):
+    the flash forward and its backward against autograd through the
+    dense path, within 2.4e-2 (out) and 3.2e-2 (each grad) of max."""
+    from repro_torch.models import attention as TA
+    S = 2304
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, 4, d)))
+               .to(cuda, torch.bfloat16).requires_grad_(True)
+               for d in (24, 24, 16))
+    ct = torch.from_numpy(rng.standard_normal((1, S, 4, 16))).to(cuda)
+    flash = TA.flash_attention(q, k, v)
+    fg = torch.autograd.grad((flash.float() * ct).sum(), (q, k, v))
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool, device=cuda))
+    dense = TA.dense_attention(q, k, v, causal[None, None, None])
+    dg = torch.autograd.grad((dense.float() * ct).sum(), (q, k, v))
+    assert flash.shape == (1, S, 4, 16)
+    assert (flash.float() - dense.float()).abs().max() <= (
+        2.4e-2 * dense.float().abs().max())
+    for a, b in zip(fg, dg):
+        assert (a.float() - b.float()).abs().max() <= (
+            3.2e-2 * b.float().abs().max())
+
+
+def test_encdec_on_card_matches_cpu(cuda):
+    """The reduced whisper: ``encode``, the prefill's and 3 decode steps'
+    logits, the card against the CPU within 5e-2 of max; ``generate``
+    with features on the card equal to the CPU's, or a near tie."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ED
+    from repro_torch.serve import engine as SE
+    cfg = get_config("whisper-medium").reduced()
+    host = ED.init_encdec(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    rng = np.random.default_rng(2)
+    f = torch.from_numpy(rng.standard_normal((2, cfg.enc_seq, cfg.d_model))
+                         ).to(torch.bfloat16)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    eh, eg = ED.encode(host, cfg, f), ED.encode(card, cfg, f.to(cuda))
+    assert (eg.float().cpu() - eh.float()).abs().max() <= (
+        5e-2 * eh.float().abs().max())
+    ch, cg = ED.init_dec_cache(cfg, 2, 12, "cpu"), ED.init_dec_cache(
+        cfg, 2, 12, cuda)
+    lh, ch = ED.encdec_prefill(host, cfg, f, tok, ch)
+    lg, cg = ED.encdec_prefill(card, cfg, f.to(cuda), tok.to(cuda), cg)
+    for t in range(4):
+        assert (lg.float().cpu() - lh.float()).abs().max() <= (
+            5e-2 * lh.float().abs().max()), t
+        nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+        lh, ch = ED.encdec_decode(host, cfg, nxt, ch)
+        lg, cg = ED.encdec_decode(card, cfg, nxt.to(cuda), cg)
+    oh = SE.generate(host, cfg, tok.numpy(), 6, features=f)
+    og = SE.generate(card, cfg, tok.numpy(), 6, features=f.to(cuda))
+    for r in range(2):
+        diff = np.flatnonzero(oh[r] != og[r])
+        if diff.size:
+            i = int(diff[0])
+            pos = torch.arange(i)[None]
+            last = ED.decode_stack(host, cfg, torch.from_numpy(oh[r:r + 1, :i]),
+                                   pos, ED.encode(host, cfg, f[r:r + 1]),
+                                   None, "prefill")[0][0, -1].float()
+            assert abs(float(last[oh[r, i]] - last[og[r, i]])) < LM_GAP
+
+
+def test_adafactor_pieces_on_card_match_cpu(cuda, monkeypatch):
+    """Adafactor with ``PIECE`` at 48 elements (a stacked factored leaf in
+    whole matrices, a two-dim leaf in row blocks, an unfactored one):
+    3 steps on the card against the CPU, parameters within one bf16 ulp
+    of their max, moments within 1e-5 relative."""
+    from repro_torch.train import optimizer as TO
+    monkeypatch.setattr(TO, "PIECE", 48)
+    g = torch.Generator().manual_seed(0)
+    shapes = {"stack": (6, 5, 7), "rows": (40, 9), "vec": (300,)}
+    params = {k: torch.randn(s, generator=g).to(torch.bfloat16)
+              for k, s in shapes.items()}
+    grads = {k: torch.randn(s, generator=g).to(torch.bfloat16)
+             for k, s in shapes.items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.clone().to(dev) for k, v in params.items()}
+        opt = TO.Adafactor()
+        st = opt.init(p)
+        for i in range(3):
+            opt.update({k: (v.float() * (i + 1)).to(torch.bfloat16).to(dev)
+                        for k, v in grads.items()}, st, p,
+                       torch.tensor(1e-2, device=dev))
+        out[str(dev)] = (p, st)
+    (ph, sh), (pg, sg) = out["cpu"], out[str(cuda)]
+    for k in shapes:
+        a, b = pg[k].float().cpu(), ph[k].float()
+        assert (a - b).abs().max() <= 2 ** -7 * b.abs().max(), k
+        for field in ("vr", "vc", "v"):
+            x, y = getattr(sg, field)[k].cpu(), getattr(sh, field)[k]
+            assert (x - y).abs().max() <= 1e-5 * y.abs().max() + 1e-30, k

@@ -291,7 +291,7 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert PORT / "launch" / "serve.py" in files
     for new in ("launch/train.py", "train/trainer.py", "train/optimizer.py",
                 "data/pipeline.py", "models/moe.py", "models/moe_a2a.py",
-                "dist/sharding.py", "models/ssm.py"):
+                "dist/sharding.py", "models/ssm.py", "models/encdec.py"):
         assert PORT / new in files
     for f in files:
         roots = set(_imported_roots(f))

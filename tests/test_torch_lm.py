@@ -28,10 +28,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget  # noqa: E402
 from repro.configs import list_archs as jlist  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
+from repro.models import encdec as JED  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
+from repro_torch.models import encdec as TED  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
@@ -39,9 +41,11 @@ from _lm_cases import J_ATTN, J_FWD, carried, f32, rel_err, tt  # noqa: E402
 
 SEEDS = range(5)
 DENSE = ["qwen3-4b", "glm4-9b", "chatglm3-6b", "granite-20b", "chameleon-34b"]
-# the MoE family: test_torch_moe.py; the SSD layer: test_torch_ssm.py
-PORTED = DENSE + ["phi3.5-moe-42b-a6.6b", "mamba2-780m", "hymba-1.5b"]
-UNPORTED = {"deepseek-v3-671b": "slice 4", "whisper-medium": "slice 5"}
+# the MoE family: test_torch_moe.py; the SSD layer: test_torch_ssm.py;
+# MLA and MTP: test_torch_mla.py; the encoder-decoder: test_torch_encdec.py
+PORTED = DENSE + ["phi3.5-moe-42b-a6.6b", "mamba2-780m", "hymba-1.5b",
+                  "deepseek-v3-671b"]
+ENCDEC = "whisper-medium"
 
 
 def bf16(rng, shape, scale=1.0):
@@ -68,32 +72,51 @@ def test_configs_equal_field_for_field():
     assert get_config("qwen3-4b").param_count() == 4_022_272_000
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + [ENCDEC])
 def test_build_plan_matches_jax(arch):
+    """Every stack of the plan (deepseek: 3 dense layers, then 58 MoE
+    layers stacked) at full and reduced size; the encoder-decoder's
+    ``init_encdec`` stacks every encoder and decoder leaf ``[L, ...]`` as
+    the reference's ``stack_params`` does."""
     for cfg in (get_config(arch), get_config(arch).reduced()):
-        jsp, = JT.build_plan(jget(arch) if cfg.num_layers > 2
-                             else jget(arch).reduced()).stacks
-        sp, = T.build_plan(cfg).stacks
-        assert (sp.kind, sp.n, sp.windows, sp.scan, sp.d_ff) == (
-            jsp.kind, jsp.n, jsp.windows, jsp.scan, jsp.d_ff)
+        jcfg = jget(arch) if cfg.num_layers > 2 else jget(arch).reduced()
+        if cfg.encdec:
+            tree = jax.eval_shape(lambda k: JL.split_params(
+                JED.init_encdec(k, jcfg))[0], jax.random.PRNGKey(0))
+            model = TED.init_encdec(cfg, device="meta")
+            for name, n in (("encoder", cfg.enc_layers),
+                            ("decoder", cfg.num_layers)):
+                assert len(getattr(model, name)) == n
+                assert all(v.shape[0] == n for v in jax.tree.leaves(
+                    tree[name]))
+            continue
+        jsps = JT.build_plan(jcfg).stacks
+        sps = T.build_plan(cfg).stacks
+        assert len(sps) == len(jsps) == (2 if cfg.first_k_dense else 1)
+        for sp, jsp in zip(sps, jsps):
+            assert (sp.kind, sp.n, sp.windows, sp.scan, sp.d_ff) == (
+                jsp.kind, jsp.n, jsp.windows, jsp.scan, jsp.d_ff)
 
 
 def _jax_leaves(cfg) -> dict:
     """The reference's parameter leaves, keyed by the port's names
     (``T.from_tree``), as (shape, dtype), without allocating."""
-    tree = jax.eval_shape(lambda k: JL.split_params(JT.init_lm(k, cfg))[0],
+    init = JED.init_encdec if cfg.encdec else JT.init_lm
+    tree = jax.eval_shape(lambda k: JL.split_params(init(k, cfg))[0],
                           jax.random.PRNGKey(0))
     return {k: (tuple(v.shape), str(v.dtype))
             for k, v in T.from_tree(tree).items()}
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + [ENCDEC])
 def test_meta_init_has_reference_shapes(arch):
     """The port's parameters are the reference's leaves, name for name:
     a scan stack's ``[L, ...]`` leaves stacked as there, bf16 matrices and
-    fp32 norm scales."""
+    fp32 norm scales (deepseek's MTP head and MLA leaves, whisper's
+    ``init_encdec`` tree among them)."""
     cfg = get_config(arch)
-    named = T.param_dict(T.init_lm(cfg, device="meta"))
+    init = TED.init_encdec if cfg.encdec else T.init_lm
+    named = T.param_dict(init(cfg, device="meta"))
     assert all(t.is_meta for t in named.values())
     assert {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
             for k, t in named.items()} == _jax_leaves(jget(arch))
@@ -103,16 +126,15 @@ def test_meta_init_has_reference_shapes(arch):
         # channels (its leaf has d_inner + 2 N) and A, D as 2 H (fp32 here)
         conv = cfg.num_layers * cfg.ssm_conv_width * 2 * cfg.ssm_state
         matrices += 2 * cfg.num_layers * cfg.ssm_heads - conv
+    if cfg.mtp_depth:  # the reference counts the MTP block's MLP at d_ff;
+        # its leaves are dense_d_ff wide
+        matrices -= cfg.mtp_depth * 3 * cfg.d_model * (cfg.dense_d_ff
+                                                       - cfg.d_ff)
+    if cfg.encdec:  # the reference's count leaves out the learned dec_pos
+        # and counts a head beside the embedding (encdec ties the two)
+        matrices -= cfg.max_position * cfg.d_model
+        matrices += cfg.vocab_size * cfg.d_model * (not cfg.tie_embeddings)
     assert matrices == cfg.param_count()
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        T.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.init_cache(cfg, 1, 8, device="cpu")
 
 
 # ----------------------------------------------------------------- layers

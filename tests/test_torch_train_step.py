@@ -147,16 +147,6 @@ def test_remat_recomputes_in_the_backward():
     assert mm2 == mm0 and bmm2 == bmm1, counts  # dots: bmm only
 
 
-def test_lm_loss_refuses_unported_families():
-    for arch, slice_ in (("deepseek-v3-671b", "slice 4"),):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match=slice_):
-            T.lm_loss(None, cfg, torch.zeros((1, 4), dtype=torch.int64),
-                      torch.zeros((1, 4), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        TR.loss_fn_for(get_config("whisper-medium").reduced())
-
-
 @pytest.mark.parametrize("layers", [2, 8])
 def test_params_to_numpy_inverts_params_from_numpy(layers):
     cfg, tcfg, params, model = carried("qwen3-4b", 0, num_layers=layers)
