@@ -220,12 +220,29 @@ non-zero:
      repro_torch.launch.train --arch whisper-medium`` trains it (8 x 128,
      1,500 frames a row, 10 steps): finite, falling losses; ms a step
      beside the bound, peak; a checkpoint round trip of the reduced config;
- 32. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
+ 32. ``dryrun``, the dry run and the roofline (``launch/dryrun.py``,
+     ``roofline/``): ``lower_cell`` for every arch at ``decode_32k`` and
+     for qwen3-4b at ``train_4k`` on the 16 x 16 mesh (one shape an arch:
+     the whole grid takes minutes of host time, the ``train_4k`` row
+     alone over a minute, and ``python -m repro_torch.launch.dryrun
+     --all`` runs it) and the ``asymp_cc_prod`` and
+     ``asymp_cc_crowded_prod`` tick cells, into a fresh directory, one line
+     a cell (status, argument GB a rank, the compute, memory and
+     collective terms on the card's peaks, the dominant term, the useful
+     ratio), any ``FAIL`` failing the run; rank 0's block of qwen3-4b's
+     ``train_4k`` state and batch allocated on the card, the rise of
+     ``memory_allocated`` equal to the record's ``argument_bytes`` with each
+     leaf rounded up to the allocator's 512 B; one layer of each family
+     (dense, MoE, SSM, hybrid, MLA dense and MoE, whisper's decoder layer)
+     at full width timed with CUDA events, fwd+bwd at 8 x 128 and a decode
+     step with 2 slots, beside its probe's compute and memory terms and the
+     measured-over-bound ratio;
+ 33. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
-20-31) and read after it.  The LM phases (20-31) launch no SpMV
-kernel (checked): they reach no ``pl.pallas_call`` in the reference.  The
+20-32) and read after it.  The LM and dry-run phases (20-32) launch no
+SpMV kernel (checked): they reach no ``pl.pallas_call`` in the reference.  The
 multi-rank phases launch no kernel (the engine tick has none): their
 labels are held to phase 4's, which equal the kernel-backed BSP's.  The ranks are one pool of spawned processes for all
 the gloo phases; a rank that fails ends the run with a non-zero exit.
@@ -3986,6 +4003,214 @@ def lm_encdec_train_phase(np, torch, TR, OPT, DP, CK, TRL, cfg, dev,
     return out
 
 
+# dryrun: the grid runs one shape per arch (``DRYRUN_SHAPE``: every shape
+# of every arch takes minutes of host time, the train row alone over a
+# minute, and the CLI's --all runs them all),
+# the cell of the per-rank bytes, then the engine tick's two production
+# cells
+DRYRUN_SHAPE = "decode_32k"
+DRYRUN_GRAPHS = ("asymp_cc_prod", "asymp_cc_crowded_prod")
+# the per-rank bytes: rank 0's block of this cell's inputs on the card
+DRYRUN_BYTES_CELL = ("qwen3-4b", "train_4k")
+ALLOC_GRANULE = 512  # the caching allocator rounds each block up to this
+# one layer a family on the card beside its probe: (family, arch, kind);
+# kind None is whisper's decoder layer (self + cross attention)
+DRYRUN_LAYERS = (("dense", "qwen3-4b", "dense"),
+                 ("moe", "phi3.5-moe-42b-a6.6b", "moe"),
+                 ("ssm", "mamba2-780m", "ssm"),
+                 ("hybrid", "hymba-1.5b", "hybrid"),
+                 ("mla_dense", "deepseek-v3-671b", "dense"),
+                 ("mla_moe", "deepseek-v3-671b", "moe"),
+                 ("whisper_dec", "whisper-medium", None))
+DRYRUN_TRAIN = (8, 128)  # the LM phases' train batch x seq
+DRYRUN_DECODE = (2, 512)  # 2 slots, a cache of 512 positions
+
+
+def dryrun_grid(DR, list_archs, out_dir: str) -> list:
+    """``lower_cell`` for every arch at ``DRYRUN_SHAPE`` and for
+    ``DRYRUN_BYTES_CELL`` on the 16 x 16 mesh (records into the fresh
+    ``out_dir``, so no cached record stands in for a run), and the two
+    engine-tick cells; one line a cell, any ``FAIL`` fails the phase."""
+    cells = [(a, DRYRUN_SHAPE) for a in list_archs()] + [DRYRUN_BYTES_CELL]
+    records = DR.run_cells(cells, False, out_dir)
+    records += [DR.lower_graph_cell(g, False) for g in DRYRUN_GRAPHS]
+    for r in records:
+        check(r["status"] in ("ok", "skip(full-attn)"),
+              f"dryrun {r['arch']} {r['shape']}: {r['status']}")
+        rf = r.get("roofline", {})
+        say("dryrun_cell", arch=r["arch"], shape=r["shape"],
+            status=r["status"],
+            argument_gb_a_rank=r.get("memory", {}).get("argument_bytes", 0)
+            / 1e9,
+            compute_ms=None if rf.get("compute_s") is None
+            else rf["compute_s"] * 1e3,
+            memory_ms=None if rf.get("memory_s") is None
+            else rf["memory_s"] * 1e3,
+            collective_ms=None if rf.get("collective_s") is None
+            else rf["collective_s"] * 1e3,
+            dominant=rf.get("dominant"),
+            useful_ratio=r.get("useful_flops_ratio"),
+            lower_s=r.get("lower_s"), probe_s=r.get("probe_s"))
+    return records
+
+
+def dryrun_bytes_on_card(torch, DR, get_config, SHAPES, dev,
+                         records: list) -> dict:
+    """Rank 0's block of every input of ``DRYRUN_BYTES_CELL`` allocated on
+    the card: the rise of ``memory_allocated`` equals the blocks' bytes,
+    each rounded up to ``ALLOC_GRANULE``, and their sum is the record's
+    ``argument_bytes``."""
+    arch, shape_name = DRYRUN_BYTES_CELL
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    mesh = DR.make_production_mesh()
+    ci = DR.cell_inputs(cfg, shape, mesh, DR.rules_for(cfg, mesh))
+    want = sum(DR.rank_bytes(t, sh) for t, sh in ci.trees)
+    rec = next(r for r in records
+               if (r["arch"], r["shape"]) == DRYRUN_BYTES_CELL)
+    check(want == rec["memory"]["argument_bytes"],
+          f"dryrun bytes: {want} != the record's "
+          f"{rec['memory']['argument_bytes']}")
+    # expandable segments split a cached segment for every request, so
+    # each block is its request rounded to the granule (a fixed segment
+    # keeps a remainder of 1 MB or less inside the block it hands out)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        before = torch.cuda.memory_allocated(dev)
+        blocks = DR.rank_blocks(ci.trees, dev)
+        rise = torch.cuda.memory_allocated(dev) - before
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    nbytes = [t.numel() * t.element_size() for t in blocks]
+    granular = sum(-(-n // ALLOC_GRANULE) * ALLOC_GRANULE for n in nbytes)
+    check(sum(nbytes) == want, f"dryrun bytes: blocks {sum(nbytes)} != "
+          f"{want}")
+    check(rise == granular, f"dryrun bytes: memory_allocated rose {rise}, "
+          f"the blocks rounded to {ALLOC_GRANULE} B are {granular}")
+    state = DR.rank_bytes(*ci.trees[ci.donated])
+    out = {"cell": f"{arch} {shape_name}", "leaves": len(blocks),
+           "argument_bytes": want, "state_bytes": state,
+           "allocated_rise": rise}
+    del blocks
+    return out
+
+
+def dryrun_layer(torch, T, ED, PR, RA, cfg, kind, dev) -> list:
+    """One layer of ``kind`` (``None``: whisper's decoder layer) at full
+    width on the card, fwd+bwd at ``DRYRUN_TRAIN`` and a decode step at
+    ``DRYRUN_DECODE`` (CUDA events, the mean of 5), each beside the same
+    call's count on meta (``roofline/probes.py``) on the card's peaks."""
+    B, S = DRYRUN_TRAIN
+    Bd, Sd = DRYRUN_DECODE
+    D = cfg.d_model
+    window = cfg.sliding_window if kind == "hybrid" else 0
+    d_ff = (cfg.dense_d_ff or cfg.d_ff) if kind == "dense" else cfg.d_ff
+    gen = torch.Generator(device=dev)
+    if kind is None:
+        pl = ED._init_dec_layer(gen.manual_seed(0), cfg, dev)
+        params = [t for d in pl.values()
+                  for t in (d.values() if isinstance(d, dict) else (d,))]
+        enc = torch.randn((B, cfg.enc_seq, D), generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+
+        def train_call(x):
+            out, _ = ED._dec_layer(pl, cfg, x, positions, enc, None, "train")
+            return out.float().sum()
+
+        probe = PR._probe_dec_layer_train(cfg, B, S)
+        hd = cfg.head_dim
+        kv = T.attn_mod.init_kv_cache(cfg, Bd, Sd, dev)
+        cross = torch.zeros((Bd, cfg.enc_seq, cfg.num_kv_heads, hd),
+                            dtype=torch.bfloat16, device=dev)
+        cache = ED.DecLayerCache(kv, cross, cross.clone())
+
+        def decode_call(x):
+            return ED._dec_layer(pl, cfg, x, dpos, None, cache, "decode")
+
+        meta = ED.DecLayerCache(
+            T.attn_mod.init_kv_cache(cfg, Bd, Sd, "meta"),
+            cross.to("meta"), cross.to("meta"))
+        with torch.no_grad(), PR.CostMode() as m:
+            ED._dec_layer({k: ({kk: vv.to("meta") for kk, vv in v.items()}
+                               if isinstance(v, dict) else v.to("meta"))
+                           for k, v in pl.items()}, cfg,
+                          torch.empty((Bd, 1, D), dtype=torch.bfloat16,
+                                      device="meta"),
+                          torch.zeros((Bd, 1), dtype=torch.long,
+                                      device="meta"), None, meta, "decode")
+        dprobe = m.cost()
+    else:
+        blk = T.init_block(cfg, kind, d_ff, seed=0, device=dev)
+        params = list(blk.parameters())
+
+        def train_call(x):
+            out, _, aux = T.apply_block(blk, cfg, x, positions, "train",
+                                        T.LayerCache(None, None), window)
+            return out.float().sum() + aux
+
+        probe = PR.probe_train_layer(cfg, B, S, kind, window, d_ff)
+        cache = T.init_layer_cache(cfg, kind, Bd, Sd, window, dev)
+
+        def decode_call(x):
+            return T.apply_block(blk, cfg, x, dpos, "decode", cache, window)
+
+        dprobe = PR.probe_serve_layer(cfg, Bd, Sd, kind, window, d_ff, 1)
+    for t in params:
+        t.requires_grad_(True)
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    dpos = torch.zeros((Bd, 1), dtype=torch.long, device=dev)
+    x = torch.randn((B, S, D), generator=gen, device=dev,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    xd = torch.randn((Bd, 1, D), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+
+    def train_step():
+        for t in params + [x]:
+            t.grad = None
+        train_call(x).backward()
+
+    def decode_step():
+        with torch.no_grad():
+            decode_call(xd)
+
+    out = []
+    for mode, fn, c in (("train", train_step, probe),
+                        ("decode", decode_step, dprobe)):
+        ms = cuda_ms(torch, fn, reps=5)
+        roof = RA.analyze({"flops": c["flops"], "bytes": c["bytes"],
+                           "collectives": None})
+        bound = max(roof.compute_s, roof.memory_s) * 1e3
+        out.append({"mode": mode, "ms": ms,
+                    "compute_ms": roof.compute_s * 1e3,
+                    "memory_ms": roof.memory_s * 1e3, "bound_ms": bound,
+                    "measured_over_bound": ms / bound,
+                    "product_share": c["product_flops"] / c["flops"]})
+    del params, x
+    return out
+
+
+def dryrun_phase(torch, T, ED, DR, PR, RA, get_config, list_archs, SHAPES,
+                 dev) -> dict:
+    """Phase ``dryrun``: the grid, the per-rank bytes on the card, one
+    layer a family timed beside its probe."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        records = dryrun_grid(DR, list_archs, out_dir)
+    grid_s = time.perf_counter() - t0
+    say("dryrun_bytes", **dryrun_bytes_on_card(torch, DR, get_config,
+                                               SHAPES, dev, records))
+    t0 = time.perf_counter()
+    for family, arch, kind in DRYRUN_LAYERS:
+        cfg = get_config(arch)
+        for row in dryrun_layer(torch, T, ED, PR, RA, cfg, kind, dev):
+            check(row["ms"] > 0 and row["bound_ms"] > 0,
+                  f"dryrun layer {family}: {row}")
+            say("dryrun_layer", family=family, arch=arch, **row)
+        torch.cuda.empty_cache()
+    return {"grid_s": grid_s, "layers_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3996,7 +4221,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.configs import get_config, get_graph_config
+        from repro_torch.configs import (SHAPES, get_config,
+                                         get_graph_config, list_archs)
         from repro_torch.configs.base import GraphConfig
         from repro_torch.core import engine as E
         from repro_torch.core import faults as F
@@ -4011,6 +4237,7 @@ def main() -> int:
         from repro_torch.kernels import _build, ops
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
+        from repro_torch.launch import dryrun as DR
         from repro_torch.launch import mesh as MS
         from repro_torch.launch import train as TRL
         from repro_torch.models import attention as TA
@@ -4020,6 +4247,8 @@ def main() -> int:
         from repro_torch.models import moe_a2a as A2A
         from repro_torch.models import ssm as SSM
         from repro_torch.models import transformer as T
+        from repro_torch.roofline import analysis as RA
+        from repro_torch.roofline import probes as PR
         from repro_torch.serve import engine as SE
         from repro_torch.serve import graph as SG
         from repro_torch.data import pipeline as DP
@@ -4587,9 +4816,18 @@ def main() -> int:
         check(not any(K.spmv_partials.launches_by_form.values()),
               f"{name} launched an SpMV kernel")
         phase_s[name] = time.perf_counter() - t_phase
+
+    # ---- 32. the dry run and the roofline (no SpMV kernel) ----
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    say("dryrun", **dryrun_phase(torch, T, ED, DR, PR, RA, get_config,
+                                 list_archs, SHAPES, dev))
+    check(not any(K.spmv_partials.launches_by_form.values()),
+          "dryrun launched an SpMV kernel")
+    phase_s["dryrun"] = time.perf_counter() - t_phase
     say("phase_seconds", **phase_s)
 
-    # ---- 32. kernels line, card, last line ----
+    # ---- 33. kernels line, card, last line ----
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 

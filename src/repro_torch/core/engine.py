@@ -43,6 +43,7 @@ tensors at any number of ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -1432,7 +1433,8 @@ def run_to_convergence(cfg: GraphConfig, *,
 # ======================================================================
 # Dry run of the dist tick
 # ======================================================================
-def lower_tick_for_mesh(cfg: GraphConfig, n_workers: int) -> dict:
+def lower_tick_for_mesh(cfg: GraphConfig, n_workers: int,
+                        cost=None) -> dict:
     """The dry run of one rank's dist tick at ``n_workers`` ranks: the JAX
     package's ``info`` (``workers``, ``vs``, ``es``, ``M``, ``D``, ``cap``,
     ``wire``, ``wire_bytes_per_tick``, ``schedule``; ``ring_slots`` on the
@@ -1445,7 +1447,10 @@ def lower_tick_for_mesh(cfg: GraphConfig, n_workers: int) -> dict:
     allocating (a tick that changed its state's shapes raises).
     ``argument_bytes`` adds up that rank's state, graph, ring and
     replicated inputs (the counterpart of XLA's
-    ``argument_size_in_bytes``)."""
+    ``argument_size_in_bytes``).  ``cost``, a counting dispatch mode
+    with a ``collectives`` list (``roofline.probes.CostMode``), is
+    entered inside the fake mode, and the group appends each collective
+    the tick makes to that list as ``(op, result_bytes, ranks)``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.dist import latency as lat_mod
@@ -1462,11 +1467,13 @@ def lower_tick_for_mesh(cfg: GraphConfig, n_workers: int) -> dict:
             "cap": ep.route_capacity, "wire": codec.compression,
             "wire_bytes_per_tick": codec.wire_bytes_per_tick(),
             "schedule": cfg.schedule}
-    group = ex_mod.ShapeOnlyGroup(0, n_workers)
+    group = ex_mod.ShapeOnlyGroup(
+        0, n_workers, None if cost is None else cost.collectives)
     vdt, P_ = prog.tdtype, n_workers
     empty = torch.empty
     try:
-        with FakeTensorMode(allow_non_fake_inputs=True):
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                (cost if cost is not None else contextlib.nullcontext()):
             state = EngineState(
                 empty((1, vs), dtype=vdt), empty((1, vs), dtype=torch.bool),
                 empty((1, vs), dtype=_I32), empty((), dtype=_I32),

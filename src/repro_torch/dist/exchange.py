@@ -190,9 +190,18 @@ class ShapeOnlyGroup(NamedTuple):
     ``rank``, whose collectives move no data: an all-to-all returns an
     uninitialised buffer of the right shape, a sum returns its input.
     Only for tracing shapes (``lower_tick_for_mesh`` under fake tensors),
-    never for a run."""
+    never for a run.  Each collective appends ``(op, result_bytes,
+    size)`` to ``log``, when there is one (HLO's op names;
+    ``roofline.analysis.fold_collectives`` counts them)."""
     rank: int
     size: int
+    log: Optional[list] = None
+
+
+def _note(group: ShapeOnlyGroup, op: str, result: torch.Tensor) -> None:
+    if group.log is not None:
+        group.log.append((op, result.numel() * result.element_size(),
+                          group.size))
 
 
 def group_rank(group) -> int:
@@ -216,6 +225,7 @@ def as_wire(x: torch.Tensor) -> torch.Tensor:
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if isinstance(group, ShapeOnlyGroup):
+        _note(group, "all-to-all", x)
         return torch.empty_like(x)
     wire = as_wire(x)
     out = torch.empty_like(wire)
@@ -286,6 +296,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 
 def _all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if isinstance(group, ShapeOnlyGroup):
+        _note(group, "all-reduce", x)
         return x
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)

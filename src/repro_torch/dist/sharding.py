@@ -138,6 +138,18 @@ class ShardingRules:
         return tuple(entries)
 
 
+def block_shape(mesh, spec: Sequence, shape: Sequence[int]) -> tuple:
+    """One rank's block of a ``shape`` laid out as ``spec`` (what
+    ``resolve`` returns) on ``mesh``: each dimension divided by the
+    product of its mesh axes (``NamedSharding.shard_shape``)."""
+    out = []
+    for entry, dim in zip(spec, shape):
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        out.append(dim // math.prod(mesh.shape[a] for a in names))
+    return tuple(out)
+
+
 # ======================================================================
 # The rank mesh
 # ======================================================================

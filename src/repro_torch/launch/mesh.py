@@ -1,5 +1,8 @@
 """Ranks for the multi-rank engine ticks: process groups, row cuts, pools.
 
+The production and local meshes (:func:`make_production_mesh`,
+:func:`make_local_mesh`) are ``dist.sharding.Mesh`` objects.
+
 Counterpart of ``repro.launch.mesh.make_worker_mesh``: where the JAX
 package lays a 1-D ``workers`` mesh over its devices and lets
 ``shard_map``'s ``P("workers")`` specs cut and join the per-shard arrays,
@@ -33,8 +36,32 @@ import torch.distributed as dist
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.dist import exchange as ex_mod
+from repro_torch.dist import sharding as sh_mod
 
 BACKENDS = ("nccl", "gloo")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> sh_mod.Mesh:
+    """The dry run's target layout as a shape-only mesh (no groups, which
+    ``ShardingRules.resolve`` does not read): one pod is 16 x 16 (data,
+    model); two pods add a leading ``pod`` axis, an outer data-parallel
+    dimension."""
+    if multi_pod:
+        return sh_mod.Mesh({"pod": 2, "data": 16, "model": 16})
+    return sh_mod.Mesh({"data": 16, "model": 16})
+
+
+def make_local_mesh(model: int = 1) -> sh_mod.Mesh:
+    """``{"data": n // model, "model": model}`` over the initialised
+    world of ``n`` ranks (its groups built: every rank calls it), or over
+    this one process when no group is initialised."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if model < 1 or n % model:
+        raise ValueError(f"model {model} does not divide {n} ranks")
+    shape = {"data": n // model, "model": model}
+    if not dist.is_initialized():
+        return sh_mod.Mesh(shape)
+    return sh_mod.Mesh.build(shape, dist.get_rank())
 
 
 def make_worker_group(rank: int, world_size: int, *, backend: str,

@@ -294,6 +294,16 @@ def decode_stack(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
     return x @ params.embed.T, new_caches
 
 
+def dec_cache_axes(cfg: ModelConfig) -> DecLayerCache:
+    """The logical axes of :func:`init_dec_cache`'s tree (stacked over
+    the decoder's layers), the reference's."""
+    kv = attn_mod.KVCache((None, "batch", "kv_seq", "kv_heads", None),
+                          (None, "batch", "kv_seq", "kv_heads", None),
+                          (None,))
+    cross = (None, "batch", None, "kv_heads", None)
+    return DecLayerCache(kv, cross, cross)
+
+
 def init_dec_cache(cfg: ModelConfig, batch: int, s_max: int,
                    device: DeviceLike = None) -> DecLayerCache:
     """The decoder's cache, ``[L, ...]`` tensors: the self-attention K/V

@@ -41,13 +41,14 @@ def mk(gen: torch.Generator, shape: Sequence[int],
     scale is ``1/sqrt(fan_in)`` (``shape[0]``).  A leaf of more than
     ``DRAW_PIECE`` elements is drawn in pieces along dim 0, so its fp32
     draw is never whole (deepseek's ``[256, 7168, 2048]`` expert leaf
-    would take 15 GB)."""
+    would take 15 GB); a ``"meta"`` leaf, which holds no data, at once."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0]) if len(shape) > 1 else 1.0
     shape = tuple(shape)
     if len(shape) == 0 or scale == 0.0:
         return torch.zeros(shape, dtype=dtype, device=device)
-    if math.prod(shape) <= DRAW_PIECE:
+    meta = device is not None and torch.device(device).type == "meta"
+    if math.prod(shape) <= DRAW_PIECE or meta:
         v = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=device)
         return (v * scale).to(dtype)

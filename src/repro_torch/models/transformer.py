@@ -152,6 +152,43 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     return tuple(caches)
 
 
+def _layer_cache_axes(cfg: ModelConfig, kind: str, stacked: bool,
+                      slots: bool = False) -> LayerCache:
+    """The logical axes of :func:`init_layer_cache`'s tree (``[L, ...]``
+    leaves lead with ``None`` when ``stacked``): the reference's.  A
+    ``pos`` is 0-d as ``init_kv_cache`` makes it; ``slots`` gives the
+    slot server's ``[num_slots]`` position a row (``serve/engine.py``,
+    the port's repair of the reference's shared position) ``("batch",)``."""
+    pre = (None,) if stacked else ()
+    pos = pre + (("batch",) if slots else ())
+    kv = s = None
+    if kind in ("dense", "moe", "hybrid"):
+        if cfg.use_mla:
+            kv = attn_mod.KVCache(pre + ("batch", "kv_seq", None), None, pos)
+        else:
+            kv = attn_mod.KVCache(pre + ("batch", "kv_seq", "kv_heads", None),
+                                  pre + ("batch", "kv_seq", "kv_heads", None),
+                                  pos)
+    if kind in ("ssm", "hybrid"):
+        s = ssm_mod.SSMCache(pre + ("batch", "ssm_heads", None, None),
+                             pre + ("batch", None, "ssm_inner"))
+    return LayerCache(kv, s)
+
+
+def cache_axes(cfg: ModelConfig, slots: bool = False):
+    """The logical axes of :func:`init_cache`'s tree, for
+    ``dist/sharding.py::ShardingRules`` (``slots``: see
+    :func:`_layer_cache_axes`)."""
+    out = []
+    for sp in build_plan(cfg).stacks:
+        if sp.scan:
+            out.append(_layer_cache_axes(cfg, sp.kind, True, slots))
+        else:
+            out.append(tuple(_layer_cache_axes(cfg, sp.kind, False, slots)
+                             for _ in range(sp.n)))
+    return tuple(out)
+
+
 # ======================================================================
 # Modules
 # ======================================================================
@@ -319,6 +356,18 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str,
     else:
         layer["mlp"] = init_mlp(gen, d, d_ff, cfg.gated_mlp, device)
     return layer
+
+
+def init_block(cfg: ModelConfig, kind: str, d_ff: int, seed: int = 0,
+               device: DeviceLike = None) -> Block:
+    """One layer of ``kind`` outside any stack (frozen weights from
+    ``seed``, ``"meta"`` allocating nothing), the leaves
+    :func:`_block_axes` names: what the roofline's probes and the card's
+    per-layer timings run."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev if dev.type == "cuda" else "cpu")
+    gen.manual_seed(seed)
+    return Block(**_init_layer(gen, cfg, kind, d_ff, dev))
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,

@@ -57,12 +57,21 @@ def _map_axes(fn, tree):
     return tuple(_map_axes(fn, v) for v in tree)
 
 
+def _piece(t: torch.Tensor) -> int:
+    """The elements ``t`` is cut into pieces of: ``PIECE``, or the whole
+    of a ``"meta"`` tensor, which holds no data to bound (the dry run's
+    and the roofline's shape-only steps run each leaf as one piece
+    through the path its size selects, the same ops without the per-piece
+    dispatch)."""
+    return max(t.numel(), 1) if t.is_meta else PIECE
+
+
 def _pieces(t: torch.Tensor):
-    """Views of ``t`` along dim 0, each of at most ``PIECE`` elements
+    """Views of ``t`` along dim 0, each of at most ``_piece(t)`` elements
     (one row at least)."""
-    if t.ndim == 0 or t.numel() <= PIECE:
+    if t.ndim == 0 or t.numel() <= _piece(t):
         return (t,)
-    rows = max(1, PIECE // (t.numel() // t.shape[0]))
+    rows = max(1, _piece(t) // (t.numel() // t.shape[0]))
     return t.split(rows, 0)
 
 
@@ -256,7 +265,7 @@ class Adafactor:
         R, C = p.shape[-2:]
         vr, vc = state.vr[k], state.vc[k]
         if p.ndim == 2:  # row blocks; vc is a mean over every block
-            n = max(1, PIECE // C)
+            n = max(1, _piece(p) // C)
             spans = [slice(i, i + n) for i in range(0, R, n)]
             col = torch.zeros_like(vc)
             for sl in spans:
@@ -274,7 +283,7 @@ class Adafactor:
         else:  # whole [R, C] matrices of the flattened leading dims
             p, g = p.view(-1, R, C), g.reshape(-1, R, C)
             vr, vc = vr.view(-1, R), vc.view(-1, C)  # written in place
-            n = max(1, PIECE // (R * C))
+            n = max(1, _piece(p) // (R * C))
             spans = [slice(i, i + n) for i in range(0, p.shape[0], n)]
             for sl in spans:
                 sq = torch.square(g[sl].to(f32)) + eps

@@ -12,7 +12,8 @@ reduced archs' logits against the CPU, the slot server against
 checkpoint's round trip; the MoE layer; and the SSM and hybrid families:
 softplus and the chunked SSD with its gradients against the CPU, the
 reduced mamba2 and hymba logits against the CPU, and their slot servers
-(SSD states, rings past the window) against ``generate``.
+(SSD states, rings past the window) against ``generate``; the dry run's
+per-rank bytes allocated on the card.
 
 Every test carries the ``gpu`` marker and skips on a host without a CUDA
 card (decided in the ``cuda`` fixture, not at import).  On a machine with
@@ -1061,3 +1062,34 @@ def test_adafactor_pieces_on_card_match_cpu(cuda, monkeypatch):
         for field in ("vr", "vc", "v"):
             x, y = getattr(sg, field)[k].cpu(), getattr(sh, field)[k]
             assert (x - y).abs().max() <= 1e-5 * y.abs().max() + 1e-30, k
+
+
+# ----------------------------------------------------------------------
+# The dry run's per-rank bytes on the card
+# ----------------------------------------------------------------------
+def test_dryrun_rank_bytes_on_card(cuda):
+    """Rank 0's block of every input of qwen3-4b's ``train_4k`` cell on
+    the 16 x 16 mesh allocated on the card: ``memory_allocated`` rises by
+    the blocks' bytes, each rounded up to the allocator's 512 B, and the
+    blocks add up to the dry run's ``argument_bytes``."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun as DR
+    cfg = get_config("qwen3-4b")
+    mesh = DR.make_production_mesh()
+    ci = DR.cell_inputs(cfg, SHAPES["train_4k"], mesh,
+                        DR.rules_for(cfg, mesh))
+    want = sum(DR.rank_bytes(t, sh) for t, sh in ci.trees)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        before = torch.cuda.memory_allocated(cuda)
+        blocks = DR.rank_blocks(ci.trees, cuda)
+        rise = torch.cuda.memory_allocated(cuda) - before
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    nbytes = [t.numel() * t.element_size() for t in blocks]
+    assert sum(nbytes) == want
+    assert rise == sum(-(-n // 512) * 512 for n in nbytes)
+    del blocks
+    torch.cuda.empty_cache()

@@ -259,6 +259,12 @@ def test_port_runs_without_jax_or_repro(tmp_path):
         "'--steps', '2', '--device', 'cpu'])\n"
         "    repro_torch.launch.serve.main(['--arch', arch, '--device', "
         "'cpu', '--requests', '3'])\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.roofline import report\n"
+        "dryrun.main(['--arch', 'whisper-medium', '--shape', 'decode_32k', "
+        "'--out', 'dr'])\n"
+        "dryrun.main(['--graph', 'asymp_cc_prod', '--out', 'dr'])\n"
+        "report.main(['--dir', 'dr'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -291,7 +297,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert PORT / "launch" / "serve.py" in files
     for new in ("launch/train.py", "train/trainer.py", "train/optimizer.py",
                 "data/pipeline.py", "models/moe.py", "models/moe_a2a.py",
-                "dist/sharding.py", "models/ssm.py", "models/encdec.py"):
+                "dist/sharding.py", "models/ssm.py", "models/encdec.py",
+                "launch/dryrun.py", "roofline/analysis.py",
+                "roofline/probes.py", "roofline/report.py"):
         assert PORT / new in files
     for f in files:
         roots = set(_imported_roots(f))
