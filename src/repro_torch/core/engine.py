@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import _trace
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import GraphConfig
 from repro_torch.core import programs as prog_mod
@@ -464,15 +465,19 @@ def make_local_tick(prog, ep: EngineParams, weighted: bool):
 
     def tick(state: EngineState, g: ShardGraph):
         w = g.weights if weighted else None
-        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
-            prog, ep, state.values, state.active, state.cursor, g.row_ptr,
-            g.col_idx, w, aux=state.aux if push_mode else None)
+        with _trace.span("asymp.tick.create"):
+            active, cursor, sv, si, sent, fetched, values, aux = \
+                _phase1_create(prog, ep, state.values, state.active,
+                               state.cursor, g.row_ptr, g.col_idx, w,
+                               aux=state.aux if push_mode else None)
         # exchange: send[p][q] -> recv[q][p] via the dist substrate
-        rv, ri = ex_mod.exchange_local(codec, sv, si)
+        with _trace.span("asymp.tick.exchange"):
+            rv, ri = ex_mod.exchange_local(codec, sv, si)
         # aux of an idempotent program: None, or an untouched caller plane
-        values, active, cursor, aux, accepted, _, _ = _receive(
-            prog, ep, push_mode, values, active, cursor,
-            aux if push_mode else state.aux, rv, ri)
+        with _trace.span("asymp.tick.receive"):
+            values, active, cursor, aux, accepted, _, _ = _receive(
+                prog, ep, push_mode, values, active, cursor,
+                aux if push_mode else state.aux, rv, ri)
         stats = TickStats(active.sum(), sent.sum(), accepted.sum(),
                           fetched.sum())
         return (EngineState(values=values, active=active, cursor=cursor,
@@ -561,17 +566,22 @@ def make_crowded_tick(prog, ep: EngineParams, weighted: bool):
     def tick(cstate: CrowdedState, g: ShardGraph, delays, throttle):
         state = cstate.core
         w = g.weights if weighted else None
-        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
-            prog, ep, state.values, state.active, state.cursor, g.row_ptr,
-            g.col_idx, w, aux=state.aux if push_mode else None,
-            throttle=throttle, demote=cstate.demote)
+        with _trace.span("asymp.tick.create"):
+            active, cursor, sv, si, sent, fetched, values, aux = \
+                _phase1_create(prog, ep, state.values, state.active,
+                               state.cursor, g.row_ptr, g.col_idx, w,
+                               aux=state.aux if push_mode else None,
+                               throttle=throttle, demote=cstate.demote)
         # messages from slow links surface ticks later, healthy links
         # deliver at once
-        rv, ri, ring, pending = ex_mod.exchange_local_delayed(
-            codec, cstate.ring, sv, si, state.tick, delays, prog.identity)
-        values, active, cursor, aux, accepted, old_plane, new_plane = \
-            _receive(prog, ep, push_mode, values, active, cursor,
-                     aux if push_mode else state.aux, rv, ri)
+        with _trace.span("asymp.tick.exchange"):
+            rv, ri, ring, pending = ex_mod.exchange_local_delayed(
+                codec, cstate.ring, sv, si, state.tick, delays,
+                prog.identity)
+        with _trace.span("asymp.tick.receive"):
+            values, active, cursor, aux, accepted, old_plane, new_plane = \
+                _receive(prog, ep, push_mode, values, active, cursor,
+                         aux if push_mode else state.aux, rv, ri)
         demote = _next_demote(prog, ep, new_plane, old_plane, ri, delays,
                               cstate.demote)
         stats = TickStats(active.sum(), sent.sum(), accepted.sum(),
@@ -646,11 +656,12 @@ def make_async_tick(prog, ep: EngineParams, weighted: bool):
         if window is None:  # the full static window for every shard
             window = torch.full((ep.num_shards,), ep.degree_window,
                                 dtype=_I32, device=fire.device)
-        active1, cursor1, sv, si, sent, fetched, values1, aux1 = \
-            _phase1_create(prog, ep, state.values, state.active,
-                           state.cursor, g.row_ptr, g.col_idx, w,
-                           aux=state.aux if push_mode else None,
-                           demote=astate.demote, stream_window=window)
+        with _trace.span("asymp.tick.create"):
+            active1, cursor1, sv, si, sent, fetched, values1, aux1 = \
+                _phase1_create(prog, ep, state.values, state.active,
+                               state.cursor, g.row_ptr, g.col_idx, w,
+                               aux=state.aux if push_mode else None,
+                               demote=astate.demote, stream_window=window)
         # only firing shards advance; the rest keep their state verbatim
         # and send nothing this step
         fire_v, fire_b = fire[:, None], fire[:, None, None]
@@ -664,14 +675,16 @@ def make_async_tick(prog, ep: EngineParams, weighted: bool):
         fetched = torch.where(fire, fetched, 0)
         # park sends, pop keyed on the receivers: a due row surfaces only
         # on a step its destination shard fires
-        rv, ri, ring, pending = ex_mod.exchange_local_delayed(
-            codec, astate.ring, sv, si, state.tick, delays, prog.identity,
-            recv_gate=fire)
+        with _trace.span("asymp.tick.exchange"):
+            rv, ri, ring, pending = ex_mod.exchange_local_delayed(
+                codec, astate.ring, sv, si, state.tick, delays,
+                prog.identity, recv_gate=fire)
         # a gated receiver's rows arrive empty, and the receive is an
         # exact no-op on empty rows: phase 2 needs no fire mask
-        values, active, cursor, aux, accepted, old_plane, new_plane = \
-            _receive(prog, ep, push_mode, values, active, cursor, aux, rv,
-                     ri)
+        with _trace.span("asymp.tick.receive"):
+            values, active, cursor, aux, accepted, old_plane, new_plane = \
+                _receive(prog, ep, push_mode, values, active, cursor, aux,
+                         rv, ri)
         demote = _next_demote(prog, ep, new_plane, old_plane, ri, delays,
                               astate.demote)
         if ep.straggler_demote:
@@ -740,13 +753,17 @@ def make_dist_tick(prog, ep: EngineParams, group, weighted: bool):
 
     def tick(state: EngineState, g: ShardGraph):
         w = g.weights if weighted else None
-        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
-            prog, ep, state.values, state.active, state.cursor, g.row_ptr,
-            g.col_idx, w, aux=state.aux if push_mode else None)
-        rv, ri = ex_mod.exchange_dist(codec, sv[0], si[0], group)
-        values, active, cursor, aux, accepted, _, _ = _receive(
-            prog, ep, push_mode, values, active, cursor,
-            aux if push_mode else state.aux, rv[None], ri[None])
+        with _trace.span("asymp.tick.create"):
+            active, cursor, sv, si, sent, fetched, values, aux = \
+                _phase1_create(prog, ep, state.values, state.active,
+                               state.cursor, g.row_ptr, g.col_idx, w,
+                               aux=state.aux if push_mode else None)
+        with _trace.span("asymp.tick.exchange"):
+            rv, ri = ex_mod.exchange_dist(codec, sv[0], si[0], group)
+        with _trace.span("asymp.tick.receive"):
+            values, active, cursor, aux, accepted, _, _ = _receive(
+                prog, ep, push_mode, values, active, cursor,
+                aux if push_mode else state.aux, rv[None], ri[None])
         stats = TickStats(*_reduce_packed(group, [
             active.sum(), sent.sum(), accepted.sum(), fetched.sum()]))
         return (EngineState(values=values, active=active, cursor=cursor,
@@ -789,16 +806,22 @@ def make_crowded_dist_tick(prog, ep: EngineParams, group, weighted: bool):
     def tick(cstate: CrowdedState, g: ShardGraph, delays, throttle):
         state = cstate.core
         w = g.weights if weighted else None
-        active, cursor, sv, si, sent, fetched, values, aux = _phase1_create(
-            prog, ep, state.values, state.active, state.cursor, g.row_ptr,
-            g.col_idx, w, aux=state.aux if push_mode else None,
-            throttle=throttle[rank:rank + 1], demote=cstate.demote)
-        rv, ri, ring, pending = ex_mod.exchange_dist_delayed(
-            codec, cstate.ring, sv[0], si[0], state.tick, delays[rank],
-            group, prog.identity)
-        values, active, cursor, aux, accepted, old_plane, new_plane = \
-            _receive(prog, ep, push_mode, values, active, cursor,
-                     aux if push_mode else state.aux, rv[None], ri[None])
+        with _trace.span("asymp.tick.create"):
+            active, cursor, sv, si, sent, fetched, values, aux = \
+                _phase1_create(prog, ep, state.values, state.active,
+                               state.cursor, g.row_ptr, g.col_idx, w,
+                               aux=state.aux if push_mode else None,
+                               throttle=throttle[rank:rank + 1],
+                               demote=cstate.demote)
+        with _trace.span("asymp.tick.exchange"):
+            rv, ri, ring, pending = ex_mod.exchange_dist_delayed(
+                codec, cstate.ring, sv[0], si[0], state.tick, delays[rank],
+                group, prog.identity)
+        with _trace.span("asymp.tick.receive"):
+            values, active, cursor, aux, accepted, old_plane, new_plane = \
+                _receive(prog, ep, push_mode, values, active, cursor,
+                         aux if push_mode else state.aux, rv[None],
+                         ri[None])
         demote = _next_demote(prog, ep, new_plane, old_plane, ri[None],
                               delays, cstate.demote, rank)
         *base, pending = _reduce_packed(group, [
@@ -842,12 +865,13 @@ def make_async_dist_tick(prog, ep: EngineParams, group, weighted: bool):
             window = torch.full((ep.num_shards,), ep.degree_window,
                                 dtype=_I32, device=fire.device)
         f = fire[rank:rank + 1]
-        active1, cursor1, sv, si, sent, fetched, values1, aux1 = \
-            _phase1_create(prog, ep, state.values, state.active,
-                           state.cursor, g.row_ptr, g.col_idx, w,
-                           aux=state.aux if push_mode else None,
-                           demote=astate.demote,
-                           stream_window=window[rank:rank + 1])
+        with _trace.span("asymp.tick.create"):
+            active1, cursor1, sv, si, sent, fetched, values1, aux1 = \
+                _phase1_create(prog, ep, state.values, state.active,
+                               state.cursor, g.row_ptr, g.col_idx, w,
+                               aux=state.aux if push_mode else None,
+                               demote=astate.demote,
+                               stream_window=window[rank:rank + 1])
         fire_v, fire_b = f[:, None], f[:, None, None]
         values = torch.where(fire_v, values1, state.values)
         active = torch.where(fire_v, active1, state.active)
@@ -857,12 +881,14 @@ def make_async_dist_tick(prog, ep: EngineParams, group, weighted: bool):
         si = torch.where(fire_b, si, -1)
         sent = torch.where(f, sent, 0)
         fetched = torch.where(f, fetched, 0)
-        rv, ri, ring, pending = ex_mod.exchange_dist_delayed(
-            codec, astate.ring, sv[0], si[0], state.tick, delays[rank],
-            group, prog.identity, recv_gate=fire)
-        values, active, cursor, aux, accepted, old_plane, new_plane = \
-            _receive(prog, ep, push_mode, values, active, cursor, aux,
-                     rv[None], ri[None])
+        with _trace.span("asymp.tick.exchange"):
+            rv, ri, ring, pending = ex_mod.exchange_dist_delayed(
+                codec, astate.ring, sv[0], si[0], state.tick, delays[rank],
+                group, prog.identity, recv_gate=fire)
+        with _trace.span("asymp.tick.receive"):
+            values, active, cursor, aux, accepted, old_plane, new_plane = \
+                _receive(prog, ep, push_mode, values, active, cursor, aux,
+                         rv[None], ri[None])
         demote = _next_demote(prog, ep, new_plane, old_plane, ri[None],
                               delays, astate.demote, rank)
         if ep.straggler_demote:
@@ -928,11 +954,23 @@ def to_device_graph(graph: ShardedGraph,
         put(graph.weights, np.float32) if graph.weights is not None else None)
 
 
+def _read(x: torch.Tensor):
+    """``x`` on the host, as an int (0-dim) or a list: one blocking
+    device-to-host transfer, under the ``asymp.session.read`` span and
+    counted in ``host_reads``."""
+    with _trace.span("asymp.session.read"):
+        _trace.count("host_reads")
+        return int(x) if x.dim() == 0 else x.tolist()
+
+
 def _to_host(*tensors) -> list:
-    """A tick's counters in one device-to-host transfer: a 0-dim tensor
-    comes back as an int, any other as a list of ints."""
-    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]
-                     ).tolist()
+    """A tick's counters in one device-to-host transfer (one span, one
+    count, as :func:`_read`): a 0-dim tensor comes back as an int, any
+    other as a list of ints."""
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors])
+    with _trace.span("asymp.session.read"):
+        _trace.count("host_reads")
+        flat = flat.tolist()
     out, i = [], 0
     for t in tensors:
         n = t.numel()
@@ -960,9 +998,14 @@ class EngineSession:
     ``fault_plan`` (a ``core.faults.FaultPlan``) kills shards on the
     plan's host steps; after each tick the session records the tick in the
     ``FaultManager``, cuts the ring checkpoint, then lets the manager fail
-    and recover shards, as the JAX package orders it.  Each tick's
-    counters come to the host in one transfer.  ``device=None`` means the
-    CUDA card (raises if there is none).  ``fork``, ``replace_state``,
+    and recover shards, as the JAX package orders it.  On the crowded and
+    async paths each tick's counters come to the host in one transfer; the
+    plain path reads its four scalars (frontier, sent, accepted, fetched)
+    one by one, four transfers a tick.  Every blocking read of a session
+    is counted in ``host_reads`` while ``_trace.tracing`` is on, and the
+    session's init, each step, each tick phase and each read open a span
+    (``repro_torch/_trace.py``).  ``device=None`` means the CUDA card
+    (raises if there is none).  ``fork``, ``replace_state``,
     ``rebind_graph`` and ``rebase_recovery`` are the streaming-delta hooks
     of the serving plane (``serve/graph.py``).
 
@@ -979,42 +1022,44 @@ class EngineSession:
                  device: DeviceLike = None):
         from repro_torch.core import faults
         from repro_torch.dist import latency as lat_mod
-        schedule = schedule or getattr(cfg, "schedule", "sync") or "sync"
-        if schedule not in ("sync", "async"):
-            raise ValueError(f"unknown schedule {schedule!r}; "
-                             f"valid: 'sync', 'async'")
-        self.device = resolve_device(device)
-        self._faults = faults
-        self.cfg = cfg
-        self.graph = graph or build_sharded_graph(cfg)
-        self.prog = prog or prog_mod.get_program(cfg)
-        self.ep = params or default_params(cfg, self.graph, self.prog)
-        self.g = to_device_graph(self.graph, self.device)
-        self.collect_log = collect_log
-        self.schedule = schedule
-        self.fault_plan = fault_plan
-        if latency is None and cfg.latency_profile != "none":
-            latency = lat_mod.from_config(cfg)
-        self.latency = latency
-        self.crowded = (latency is not None
-                        or faults.injects_slowdown(fault_plan))
-        self.max_delay = (max(latency.max_delay if latency else 0,
-                              faults.max_injected_delay(fault_plan))
-                          if self.crowded else 0)
-        self.log: list = []
-        self.totals = {"ticks": 0, "sent": 0, "accepted": 0, "fetched": 0,
-                       "replayed": 0, "failures": 0, "pending": 0,
-                       "schedule": schedule}
-        self._t = 0  # host step counter (fault schedules key on it)
-        self._pending = 0
-        self._ring_ckpt = None
-        self._conditions: dict = {}
-        if schedule == "async":
-            self._init_async(lat_mod)
-        elif self.crowded:
-            self._init_crowded()
-        else:
-            self._init_plain()
+        with _trace.span("asymp.session.init"):
+            schedule = (schedule or getattr(cfg, "schedule", "sync")
+                        or "sync")
+            if schedule not in ("sync", "async"):
+                raise ValueError(f"unknown schedule {schedule!r}; "
+                                 f"valid: 'sync', 'async'")
+            self.device = resolve_device(device)
+            self._faults = faults
+            self.cfg = cfg
+            self.graph = graph or build_sharded_graph(cfg)
+            self.prog = prog or prog_mod.get_program(cfg)
+            self.ep = params or default_params(cfg, self.graph, self.prog)
+            self.g = to_device_graph(self.graph, self.device)
+            self.collect_log = collect_log
+            self.schedule = schedule
+            self.fault_plan = fault_plan
+            if latency is None and cfg.latency_profile != "none":
+                latency = lat_mod.from_config(cfg)
+            self.latency = latency
+            self.crowded = (latency is not None
+                            or faults.injects_slowdown(fault_plan))
+            self.max_delay = (max(latency.max_delay if latency else 0,
+                                  faults.max_injected_delay(fault_plan))
+                              if self.crowded else 0)
+            self.log: list = []
+            self.totals = {"ticks": 0, "sent": 0, "accepted": 0, "fetched": 0,
+                           "replayed": 0, "failures": 0, "pending": 0,
+                           "schedule": schedule}
+            self._t = 0  # host step counter (fault schedules key on it)
+            self._pending = 0
+            self._ring_ckpt = None
+            self._conditions: dict = {}
+            if schedule == "async":
+                self._init_async(lat_mod)
+            elif self.crowded:
+                self._init_crowded()
+            else:
+                self._init_plain()
 
     # -- mode setup ----------------------------------------------------
     def _fault_manager(self, ep: EngineParams, replay_slack: int):
@@ -1042,7 +1087,7 @@ class EngineSession:
         self._tick_fn = make_local_tick(self.prog, self.ep,
                                         self.prog.weighted)
         self._state = init_state(self.prog, self.graph, self.device)
-        self._n_active = int(torch.sum(self._state.active))
+        self._n_active = _read(torch.sum(self._state.active))
 
     def _init_crowded(self) -> None:
         self.ep_run = self.ep
@@ -1052,7 +1097,7 @@ class EngineSession:
                                           self.prog.weighted)
         self._cstate = init_crowded_state(self.prog, self.ep, self.graph,
                                           self.max_delay, self.device)
-        self._n_active = int(torch.sum(self._cstate.core.active))
+        self._n_active = _read(torch.sum(self._cstate.core.active))
 
     def _init_async(self, lat_mod) -> None:
         cfg, plan = self.cfg, self.fault_plan
@@ -1090,7 +1135,7 @@ class EngineSession:
         # rewinds, and reading it back would cost a sync every step
         self._dev_tick = 0
         self._clock = [0] * self.graph.num_shards
-        self._shard_busy = self._astate.core.active.sum(dim=1).tolist()
+        self._shard_busy = _read(self._astate.core.active.sum(dim=1))
         self._n_active = sum(self._shard_busy)
 
     def _device_conditions(self, delays, throttle):
@@ -1124,9 +1169,10 @@ class EngineSession:
     def _step_plain(self) -> None:
         t, fault_mgr = self._t, self.fault_mgr
         state, stats, send_bufs = self._tick_fn(self._state, self.g)
-        n_active = int(stats.active)
+        n_active = _read(stats.active)
         totals = self.totals
-        self._count(int(stats.sent), int(stats.accepted), int(stats.fetched))
+        self._count(_read(stats.sent), _read(stats.accepted),
+                    _read(stats.fetched))
         if fault_mgr is not None:
             # the kill schedule is keyed on the host step, as in the JAX
             # package
@@ -1135,12 +1181,12 @@ class EngineSession:
             totals["replayed"] += extra["replayed"]
             totals["failures"] += extra["failures"]
             if extra["failures"]:
-                n_active = int(torch.sum(state.active))
+                n_active = _read(torch.sum(state.active))
         if self.collect_log:
             self.log.append({"tick": t, "active": n_active,
-                             "sent": int(stats.sent),
-                             "accepted": int(stats.accepted),
-                             "fetched": int(stats.fetched)})
+                             "sent": _read(stats.sent),
+                             "accepted": _read(stats.accepted),
+                             "fetched": _read(stats.fetched)})
         self._state = state
         self._n_active = n_active
 
@@ -1183,11 +1229,11 @@ class EngineSession:
                         self.prog, self.ep, self.graph, self.max_delay,
                         self.device)._replace(core=core._replace(
                             tick=torch.zeros_like(core.tick)))
-                pending = int(ex_mod.ring_pending(cstate.ring))
+                pending = _read(ex_mod.ring_pending(cstate.ring))
             totals["replayed"] += extra["replayed"]
             totals["failures"] += extra["failures"]
             if extra["failures"]:
-                n_active = int(torch.sum(cstate.core.active))
+                n_active = _read(torch.sum(cstate.core.active))
         if self.collect_log:
             self.log.append({"tick": t, "active": n_active, "sent": sent,
                              "accepted": accepted, "fetched": fetched,
@@ -1237,7 +1283,7 @@ class EngineSession:
             astate = astate._replace(core=core)
             if "clock" in extra:
                 astate = astate._replace(clock=extra["clock"])
-                self._clock = extra["clock"].tolist()
+                self._clock = _read(extra["clock"])
             if extra["failures"] and fault_mgr.recovery == "checkpoint":
                 if self._ring_ckpt is not None:
                     (ring, demote, snap_tick, snap_clock, self._dev_tick,
@@ -1252,7 +1298,7 @@ class EngineSession:
                         core=core._replace(tick=torch.zeros_like(core.tick)))
                     self._dev_tick = 0
                     self._clock = [0] * self.graph.num_shards
-                pending = int(ex_mod.ring_pending(astate.ring))
+                pending = _read(ex_mod.ring_pending(astate.ring))
             totals["replayed"] += extra["replayed"]
             totals["failures"] += extra["failures"]
             if extra["failures"]:
@@ -1304,12 +1350,13 @@ class EngineSession:
 
     def step(self) -> None:
         """Run exactly one engine tick (plus its fault bookkeeping)."""
-        if self.schedule == "async":
-            self._step_async()
-        elif self.crowded:
-            self._step_crowded()
-        else:
-            self._step_plain()
+        with _trace.span("asymp.session.step"):
+            if self.schedule == "async":
+                self._step_async()
+            elif self.crowded:
+                self._step_crowded()
+            else:
+                self._step_plain()
         self._t += 1
 
     def tick_until_quiescent(self, budget: Optional[int] = None) -> dict:
@@ -1375,10 +1422,10 @@ class EngineSession:
                 core.active.sum(dim=1) + inflight.sum(dim=(0, 1, 3)))
         elif self.crowded:
             self._cstate = self._cstate._replace(core=core)
-            self._n_active = int(torch.sum(core.active))
+            self._n_active = _read(torch.sum(core.active))
         else:
             self._state = core
-            self._n_active = int(torch.sum(core.active))
+            self._n_active = _read(torch.sum(core.active))
 
     def rebind_graph(self, graph: ShardedGraph) -> None:
         """Point the session at a patched graph (streaming delta): the

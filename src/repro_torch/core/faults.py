@@ -45,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import _trace
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import GraphConfig
 from repro_torch.core.engine import EngineParams, EngineState, init_state
@@ -188,23 +189,25 @@ class FaultManager:
         """After host step ``t``'s tick: snapshot on checkpoint steps, and
         log the tick's send buffers (replay recovery only).  ``clock``
         (async runs): the host's ``[P]`` clock vector after the tick."""
-        if t % self.ckpt_every == 0:
-            if clock is not None:
-                self.ckpt_clock = {p: int(c) for p, c in enumerate(clock)}
-            vals, act, cur = (x.clone() for x in (state.values,
-                                                   state.active,
-                                                   state.cursor))
-            aux = state.aux.clone() if state.aux is not None else None
-            for p in range(self.graph.num_shards):
-                self.ckpt[p] = (vals[p], act[p], cur[p],
-                                aux[p] if aux is not None else None)
-            self.ckpt_tick[:] = t
-        if self.recovery == "replay":  # checkpoint mode never reads the log
-            sv, si = send_bufs
-            self.msg_log[t] = (sv.clone(), si.clone())
-            for old in list(self.msg_log):
-                if old < t - (self.log_ticks + self.replay_slack):
-                    del self.msg_log[old]
+        with _trace.span("asymp.faults.record"):
+            if t % self.ckpt_every == 0:
+                if clock is not None:
+                    self.ckpt_clock = {p: int(c)
+                                       for p, c in enumerate(clock)}
+                vals, act, cur = (x.clone() for x in (state.values,
+                                                       state.active,
+                                                       state.cursor))
+                aux = state.aux.clone() if state.aux is not None else None
+                for p in range(self.graph.num_shards):
+                    self.ckpt[p] = (vals[p], act[p], cur[p],
+                                    aux[p] if aux is not None else None)
+                self.ckpt_tick[:] = t
+            if self.recovery == "replay":  # checkpoint mode never reads it
+                sv, si = send_bufs
+                self.msg_log[t] = (sv.clone(), si.clone())
+                for old in list(self.msg_log):
+                    if old < t - (self.log_ticks + self.replay_slack):
+                        del self.msg_log[old]
 
     def rebase(self, t: int, state: EngineState, clock=None,
                graph=None) -> None:
@@ -247,7 +250,8 @@ class FaultManager:
         extra = {"failures": 0, "replayed": 0}
         new_clock = None if clock is None else [int(c) for c in clock]
         for p in self._schedule.get(t, []):
-            state, replayed = self.fail_shard(t, state, p)
+            with _trace.span("asymp.faults.recover"):  # one span a kill
+                state, replayed = self.fail_shard(t, state, p)
             extra["failures"] += 1
             extra["replayed"] += replayed
             if new_clock is not None:
@@ -320,6 +324,7 @@ class FaultManager:
         values[p] = new
         active[p] |= improved
         cursor[p] = torch.where(improved, 0, cursor[p])
+        _trace.count("host_reads")
         return int(torch.sum(ids_in >= 0))
 
     def _boundary_into(self, p: int) -> torch.Tensor:

@@ -8,12 +8,15 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import _trace
 from repro_torch.core.engine import EngineState
 from repro_torch.core.graph import ShardedGraph
 
 
 def extract(state: EngineState, graph: ShardedGraph, prog) -> np.ndarray:
-    """Returns dense per-vertex output [num_real_vertices] on the host."""
+    """Returns dense per-vertex output [num_real_vertices] on the host (one
+    transfer, counted in ``host_reads``)."""
+    _trace.count("host_reads")
     values = prog.output(state.values).detach().cpu().numpy().reshape(-1)
     return values[: graph.num_real_vertices]
 
