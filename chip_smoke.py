@@ -7,8 +7,9 @@ Phases, each printed as it ends with its seconds; any failed check exits
 non-zero:
 
   1. environment: torch, the card, ``nvidia-smi`` name and power limit;
-  2. build: compile ``csrc/semiring_spmv.cu`` with nvcc, print ptxas'
-     registers, shared memory and spills per kernel;
+  2. build: compile ``csrc/semiring_spmv.cu`` and
+     ``csrc/engine_receive.cu`` with nvcc, print ptxas' registers, shared
+     memory and spills per kernel;
   3. the kernels against their plain PyTorch version on the same inputs —
      every (semiring, dtype) of the sweep and the tensor-core
      ``plus_times`` at 1/3/8 random-dst blocks (the scalar kernel's
@@ -25,13 +26,20 @@ non-zero:
   4. the main path at full size: ``asymp_cc_large`` (RMAT 2^18, 8 shards)
      to convergence on the prioritized engine, the kernel-backed BSP
      baseline, and the dense pagerank oracle (the kernel's plus_times
-     form); engine labels must equal BSP labels, and the kernel's launches
-     must equal the BSP rounds and the pagerank iterations; then a
-     profiled BSP run and a profiled window of engine ticks (device time
-     by op, busy share);
+     form); engine labels must equal BSP labels, the SpMV kernel's
+     launches must equal the BSP rounds and the pagerank iterations, and
+     the receive kernel's (``csrc/engine_receive.cu``) the engine's ticks;
+     then a profiled BSP run and a profiled window of engine ticks (device
+     time by op, busy share); then the receive kernel on the next tick's
+     own receive (its pre-receive planes and the exchange's views) and at
+     the benchmark's shape (``[8, 8, 255,000]`` views, about 9 k live
+     slots, every idempotent form): bitwise its plain version, its device
+     time beside the plain version's, one ``scatter_reduce_`` call's and
+     its bound (the id scan and the state planes' copies);
   5. the ``benchmarks/bench_speed.py --smoke`` configs (RMAT 2^12): the
      fixpoints against the union-find and labelprop oracles, and the
      tick/message counts beside the JAX package's committed baselines;
+     one receive launch a tick;
   6. push-mode pagerank at ``asymp_pagerank`` (RMAT 2^14, degree 16) to
      convergence, held to ``tests/test_pagerank.py``'s verdict against the
      kernel-backed dense oracle (80 iterations, absorb), then one
@@ -39,8 +47,8 @@ non-zero:
      scalar form's;
   7. faults (paper §5.5), ``FaultPlan(0.5, start_tick=4, every=6)``:
      ``asymp_cc_large`` by replay — labels equal the fault-free labels,
-     4 failures — and ``asymp_pagerank`` by global checkpoint restore —
-     no replay, the verdict of phase 6;
+     4 failures, one receive launch a tick — and ``asymp_pagerank`` by
+     global checkpoint restore — no replay, the verdict of phase 6;
   8. ``wire``: ``asymp_cc_wire`` (RMAT 2^14, int16 labels and ids) to
      convergence, its labels equal to the raw-wire ``asymp_cc_small``
      run's; the codec's int16/int8 encode and decode of ints and of
@@ -50,7 +58,8 @@ non-zero:
      ``asymp_cc_large`` under ``latency_profile="stragglers"``, half the
      shards crowded (link delay 2, budget / 4; what ``graph_mine --config
      asymp_cc_large --slowdown 0.5 --link-delay 2 --intensity 4`` runs) to
-     convergence: labels equal phase 4's, the delay ring drained; ticks,
+     convergence: labels equal phase 4's, the delay ring drained, one
+     receive launch a tick; ticks,
      messages, the degradation against phase 4's ticks, wall time, peak
      memory; then a profiled window of crowded ticks and one of async
      ticks on the same graph and profile;
@@ -58,8 +67,9 @@ non-zero:
      (RMAT 2^12 SSSP, 8 shards): healthy and crowded tick counts of the
      priority, FIFO and async schedulers equal the JAX package's
      baselines, the §5.4 gates hold, every fixpoint equals the healthy
-     one, and the healthy distances equal the kernel-backed ``min_plus``
-     pull iterated from the program's initial values to its fixpoint;
+     one, one receive launch a tick of the six runs, and the healthy
+     distances equal the kernel-backed ``min_plus`` pull iterated from
+     the program's initial values to its fixpoint;
  11. ``crowded_faults``: ``asymp_cc_crowded`` (RMAT 2^14), sync and async,
      under kills plus slowdowns: labels equal the fault-free labels, 4
      failures, messages replayed;
@@ -240,11 +250,12 @@ non-zero:
  33. ``{"kernels": [...]}``, then the card's nvidia-smi line, then the last
      line ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
+SpMV launch counts are set to 0 before each path (4, 6, 7, 9, 10, 12, 13, 15,
 20-32) and read after it.  The LM and dry-run phases (20-32) launch no
 SpMV kernel (checked): they reach no ``pl.pallas_call`` in the reference.  The
-multi-rank phases launch no kernel (the engine tick has none): their
-labels are held to phase 4's, which equal the kernel-backed BSP's.  The ranks are one pool of spawned processes for all
+multi-rank phases launch no SpMV kernel; each rank's engine tick launches
+the receive kernel in its own process (not counted here).  Their labels
+are held to phase 4's, which equal the kernel-backed BSP's.  The ranks are one pool of spawned processes for all
 the gloo phases; a rank that fails ends the run with a non-zero exit.
 
 It imports nothing of JAX or of the JAX package ``repro``.
@@ -275,6 +286,9 @@ SWEEP = [("min", "int32"), ("min", "float32"), ("min_plus", "float32"),
 SMOKE_BASELINE = {"cc": (120, 129164), "labelprop": (121, 129566)}
 PAGERANK_ITERS = 5
 PROFILE_WARM_TICKS, PROFILE_TICKS = 100, 20
+# the benchmark's receive (portbench's g500-wcc cells): 8 shards of 65,536
+# vertices, the exchange's [8, 8, 255,000] views, about 9 k live slots
+RECEIVE_SHAPE, RECEIVE_VS, RECEIVE_LIVE = (8, 8, 255_000), 65_536, 5.5e-4
 # the JAX package's seeded, fault-free asymp_pagerank run (CPU): ticks and
 # messages.  The card's float scatter-add is atomic, so its counts may move
 JAX_PAGERANK = (7202, 98730925)
@@ -547,6 +561,106 @@ def bound_of(semiring, n, n_blocks, weighted, tile_steps=None):
                                  else "operations"), nbytes
 
 
+def receive_views(torch, form, dev, seed: int):
+    """``(old, active, cursor, recv_vals, recv_ids)`` at the benchmark's
+    receive shape, the buffers as the local exchange hands them over:
+    ``[P, Pn, cap]`` slices of ``[P, Pn, cap + 1]`` send buffers, seen
+    transposed as ``[Pn, P, cap]`` views (not copies)."""
+    name, dtype = form
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    (p, r, c), vs = RECEIVE_SHAPE, RECEIVE_VS
+
+    def draw(shape):  # ties are common; floats negative too
+        if name == "or":
+            return torch.randint(0, 2, shape, generator=gen, device=dev,
+                                 dtype=torch.int32)
+        x = torch.randint(-1000, 1000, shape, generator=gen, device=dev)
+        return x.to(torch.int32) if dtype == "int32" else x.float() / 4
+
+    ids = torch.full((r, p, c + 1), -1, dtype=torch.int32, device=dev)
+    hit = torch.rand((r, p, c), generator=gen, device=dev) < RECEIVE_LIVE
+    ids[..., :c] = torch.where(hit, torch.randint(
+        0, vs, (r, p, c), generator=gen, device=dev, dtype=torch.int32), -1)
+    vals = draw((r, p, c + 1))
+    return (draw((p, vs)), torch.rand((p, vs), generator=gen, device=dev)
+            < 0.2, torch.randint(0, 9, (p, vs), generator=gen, device=dev,
+                                 dtype=torch.int32),
+            vals[..., :c].transpose(0, 1), ids[..., :c].transpose(0, 1))
+
+
+def receive_form(torch, RK, agg, case, where: str) -> dict:
+    """The receive kernel on one case: launched once and bitwise its plain
+    version (values, active, cursor, accepted), then its device time beside
+    the plain version's, one ``scatter_reduce_`` call's over precomputed
+    padded indices (the library yardstick) and its bound: every slot's id
+    read once, and the three state planes copied (read and written: 4 + 1
+    + 4 bytes a vertex each way)."""
+    old, active, cursor, rv, ri = case
+    n_p, vs = old.shape
+    launches = RK.deliver.launches
+    got = RK.deliver(agg, *case)
+    want = RK.deliver_ref(agg, *case)
+    torch.cuda.synchronize()
+    check(RK.deliver.launches == launches + 1,
+          f"the receive kernel did not launch once ({where})")
+    for g, w, field in zip(got, want, ("values", "active", "cursor",
+                                       "accepted")):
+        check(torch.equal(g, w), f"the receive kernel's {field} differs "
+                                 f"from its plain version ({where})")
+    ms = cuda_ms(torch, lambda: RK.deliver(agg, *case), 50)
+    plain_ms = cuda_ms(torch, lambda: RK.deliver_ref(agg, *case), 5)
+    ids = ri.reshape(n_p, -1)
+    idx = torch.where(ids >= 0, ids, vs).to(torch.int64)
+    vals = rv.reshape(n_p, -1)
+    buf = torch.cat([old, old[:, :1]], dim=1)
+    reduce = {"min": "amin", "max": "amax", "or": "amax"}[agg.name]
+    library_ms = cuda_ms(torch, lambda: buf.scatter_reduce_(
+        1, idx, vals, reduce=reduce, include_self=True), 5)
+    check(torch.equal(buf[:, :vs], got[0]),
+          f"the receive's library yardstick disagrees ({where})")
+    nbytes = ri.numel() * 4 + old.numel() * 2 * (4 + 1 + 4)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return {"where": where, "aggregator": agg.name,
+            "dtype": str(old.dtype).replace("torch.", ""),
+            "shape": list(ri.shape), "strides": list(ri.stride()),
+            "vertices_a_shard": vs, "live_slots": int((ri >= 0).sum()),
+            "accepted": int(got[3].sum()), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes,
+            "ms_over_bound": ms / bound_ms}
+
+
+def receive_phase(torch, E, RK, AGG, sess, dev) -> list:
+    """The receive kernel at the main path's own receive (one tick of the
+    ``asymp_cc_large`` session ``sess``: its pre-receive planes and the
+    exchange's views, as the engine passed them) and at the benchmark's
+    shape for every idempotent form; the main path's form first."""
+    seen = []
+    receive = E._phase2_receive
+
+    def capture(prog, *args):
+        seen.append((prog.aggregator, *args))
+        return receive(prog, *args)
+
+    E._phase2_receive = capture
+    try:
+        sess.step()
+    finally:
+        E._phase2_receive = receive
+    check(len(seen) == 1, f"one tick delivered {len(seen)} times")
+    tick = sess.totals["ticks"] - 1
+    forms = [receive_form(torch, RK, seen[0][0], seen[0][1:],
+                          f"{sess.cfg.name} tick {tick}")]
+    del seen
+    for i, form in enumerate((("min", "int32"), ("min", "float32"),
+                              ("max", "int32"), ("max", "float32"),
+                              ("or", "int32"))):
+        forms.append(receive_form(
+            torch, RK, AGG[form[0]], receive_views(torch, form, dev, 28 + i),
+            f"the benchmark's shape, {form[0]}/{form[1]}"))
+    return forms
+
+
 def pagerank_verdict(torch, np, M, state, totals, g, oracle, where):
     """``tests/test_pagerank.py::_verdict``: L1 of ranks/n to the oracle
     below 1e-3, mass balance within 1e-5, no latched push, residuals at or
@@ -648,15 +762,17 @@ def crowd_sssp_config(GraphConfig):
                        weighted=True, **PRIORITY)
 
 
-def crowded_smoke_phase(np, torch, E, K, L, R, ops, cfg, g, pg,
-                        get_program, dev) -> dict:
+def crowded_smoke_phase(np, torch, E, K, L, R, RK, ops, cfg, g, pg,
+                        get_program, dev) -> tuple:
     """``bench_crowded --smoke``'s scenario (``cfg``, its graph ``g`` and
     pulled stream ``pg``), counts and gates; the SSSP fixpoint against the
     kernel-backed ``min_plus`` pull, each round's kernel partials held
     bitwise against the plain version on that round's inputs.  Returns the
-    pull's launches."""
+    pull's launches and the receive kernel's (one a tick of the six
+    runs)."""
     n = g.num_real_vertices
     res, healthy = {}, None
+    rx0 = RK.deliver.launches
     for name, c in (("priority", cfg),
                     ("fifo", dataclasses.replace(cfg, **FIFO)),
                     ("async", dataclasses.replace(cfg, schedule="async"))):
@@ -676,6 +792,7 @@ def crowded_smoke_phase(np, torch, E, K, L, R, ops, cfg, g, pg,
                   f"crowded smoke {name}/{cond}: fixpoint differs")
             res[name, cond] = (tot["ticks"], tot["sent"],
                                time.perf_counter() - t0)
+    receives = RK.deliver.launches - rx0
     ratio = {k: res[k, "crowded"][0] / res[k, "healthy"][0]
              for k in CROWDED_BASELINE}
     # the healthy distances against the min_plus pull to its fixpoint
@@ -697,7 +814,7 @@ def crowded_smoke_phase(np, torch, E, K, L, R, ops, cfg, g, pg,
         baseline_ticks=CROWDED_BASELINE, degradation=ratio,
         min_plus_pull_rounds=rounds, min_plus_pull_max_abs_err=pull_err,
         pull_equals_engine=torch.equal(v, healthy),
-        kernel_launches=pull_launches)
+        kernel_launches=pull_launches, receive_launches=receives)
     for k, want in CROWDED_BASELINE.items():
         check((res[k, "healthy"][0], res[k, "crowded"][0]) == want,
               f"crowded smoke {k}: ticks {res[k, 'healthy'][0]}/"
@@ -711,7 +828,10 @@ def crowded_smoke_phase(np, torch, E, K, L, R, ops, cfg, g, pg,
           "the SSSP fixpoint differs from the kernel-backed min_plus pull")
     check(pull_launches.get("min_plus/float32", 0) == rounds,
           f"min_plus launches {pull_launches} != {rounds} pull rounds")
-    return pull_launches
+    ticks = sum(t for t, _, _ in res.values())
+    check(receives == ticks,
+          f"crowded smoke: receive launches {receives} != ticks {ticks}")
+    return pull_launches, receives
 
 
 def crowded_faults_phase(torch, E, F, G, get_graph_config, dev):
@@ -4229,12 +4349,14 @@ def main() -> int:
         from repro_torch.core import graph as G
         from repro_torch.core import merger as M
         from repro_torch.core.programs import get_program
+        from repro_torch.core.semiring import AGGREGATORS
         from repro_torch.dist import exchange as X
         from repro_torch.dist import latency as L
         from repro_torch.dist import sharding as SH
         from repro_torch.ft import checkpoint as CK
         from repro_torch.ft import elastic as EL
         from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import receive as RK
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
         from repro_torch.launch import dryrun as DR
@@ -4279,6 +4401,12 @@ def main() -> int:
     say("build", seconds=round(built["seconds"], 3), cached=built["cached"],
         library=os.path.relpath(built["path"], ROOT))
     say("ptxas", kernels=ptxas_summary(built["report"], K.SEMIRINGS))
+    built_rx = _build.build("engine_receive")
+    _build.load("engine_receive")
+    say("build_receive", seconds=round(built_rx["seconds"], 3),
+        cached=built_rx["cached"],
+        library=os.path.relpath(built_rx["path"], ROOT),
+        ptxas=ptxas_summary(built_rx["report"], K.SEMIRINGS))
 
     phase_s["environment_and_build"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -4437,11 +4565,14 @@ def main() -> int:
     K.reset_launch_counts()  # the pagerank oracle
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    receives = {}  # the receive kernel's launches, path by path
+    rx0 = RK.deliver.launches
     t0 = time.perf_counter()
     state, totals = E.run_to_convergence(cfg_large, graph=graph, device=dev,
                                          collect_log=True)
     torch.cuda.synchronize()
     prop_s = time.perf_counter() - t0
+    receives["main_path"] = RK.deliver.launches - rx0
     t0 = time.perf_counter()
     bsp_labels, bsp = ops.bsp_connected_components(graph, device=dev,
                                                    pulled=pg_dev)
@@ -4460,7 +4591,8 @@ def main() -> int:
         converged=totals["converged"], bsp_rounds=bsp["rounds"],
         bsp_messages=bsp["messages"], propagation_s=prop_s, bsp_s=bsp_s,
         pagerank_iters=PAGERANK_ITERS, pagerank_s=pagerank_s,
-        kernel_launches=launches, max_memory_allocated=peak,
+        kernel_launches=launches, receive_launches=receives["main_path"],
+        max_memory_allocated=peak,
         components=int(torch.unique(labels).numel()))
     check(totals["converged"], "the engine did not converge")
     check(torch.equal(labels, bsp_labels), "engine labels != BSP labels")
@@ -4468,6 +4600,9 @@ def main() -> int:
           f"kernel launches {launches} != BSP rounds {bsp['rounds']}")
     check(launches.get("plus_times/float32", 0) == PAGERANK_ITERS,
           f"plus_times launches {launches} != {PAGERANK_ITERS}")
+    check(receives["main_path"] == totals["ticks"],
+          f"receive launches {receives['main_path']} != ticks "
+          f"{totals['ticks']}")
     check(bool(torch.isfinite(ranks).all())
           and abs(float(ranks.sum()) - 1.0) < 1e-3,
           f"pagerank mass {float(ranks.sum())} is not 1")
@@ -4493,7 +4628,15 @@ def main() -> int:
     phase_s["main_path"] = time.perf_counter() - t_phase
     say("engine_tick_profile", ticks=f"{PROFILE_WARM_TICKS}.."
         f"{PROFILE_WARM_TICKS + PROFILE_TICKS}", **tick_profile)
+
+    # ---- 4c. the receive kernel at the main path's own receive and at
+    # the benchmark's shape ----
+    t_phase = time.perf_counter()
+    rx_forms = receive_phase(torch, E, RK, AGGREGATORS, sess, dev)
+    for form in rx_forms:
+        say("receive_kernel", **form)
     del sess
+    phase_s["receive"] = time.perf_counter() - t_phase
 
     # ---- 5. bench_speed smoke configs against the oracles ----
     t_phase = time.perf_counter()
@@ -4509,13 +4652,18 @@ def main() -> int:
               "labelprop": G.labelprop_oracle(g.num_real_vertices, comp=comp)}
     for alg, (ticks0, msgs0) in SMOKE_BASELINE.items():
         c = dataclasses.replace(cfg, algorithm=alg, name=f"smoke-{alg}")
+        rx0 = RK.deliver.launches
         st, tot = E.run_to_convergence(c, graph=g, device=dev)
+        rx = RK.deliver.launches - rx0
+        receives[f"bench_speed_smoke {alg}"] = rx
         lab = st.values.reshape(-1)[: g.num_real_vertices].cpu().numpy()
         check(tot["converged"] and np.array_equal(lab, expect[alg]),
               f"smoke: {alg} fixpoint wrong")
+        check(rx == tot["ticks"],
+              f"smoke: {alg} receive launches {rx} != ticks {tot['ticks']}")
         say("bench_speed_smoke", program=alg, ticks=tot["ticks"],
             messages=tot["sent"], baseline_ticks=ticks0,
-            baseline_messages=msgs0,
+            baseline_messages=msgs0, receive_launches=rx,
             counts_match=(tot["ticks"], tot["sent"]) == (ticks0, msgs0))
     phase_s["bench_speed_smoke"] = time.perf_counter() - t_phase
 
@@ -4525,10 +4673,13 @@ def main() -> int:
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    rx0 = RK.deliver.launches
     t0 = time.perf_counter()
     st_pr, tot_pr = E.run_to_convergence(cfg_pr, graph=g_pr, device=dev)
     torch.cuda.synchronize()
     pr_s = time.perf_counter() - t0
+    check(RK.deliver.launches == rx0,
+          "push-mode pagerank launched the receive kernel")
     pr_peak = torch.cuda.max_memory_allocated()
     oracle = ops.pagerank(g_pr, damping=cfg_pr.damping, iters=ORACLE_ITERS,
                           dangling="absorb", device=dev, pulled=pg_pr)
@@ -4566,11 +4717,13 @@ def main() -> int:
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    rx0 = RK.deliver.launches
     t0 = time.perf_counter()
     st_f, tot_f = E.run_to_convergence(cfg_large, graph=graph, device=dev,
                                        fault_plan=F.FaultPlan(**plan))
     torch.cuda.synchronize()
     cc_fault_s = time.perf_counter() - t0
+    receives["faults_replay"] = RK.deliver.launches - rx0
     cc_fault_peak = torch.cuda.max_memory_allocated()
     same = torch.equal(st_f.values.reshape(-1)[: graph.num_real_vertices],
                        labels)
@@ -4580,12 +4733,16 @@ def main() -> int:
         propagation_s=cc_fault_s, fault_free_propagation_s=prop_s,
         wall_time_ratio=cc_fault_s / prop_s, failures=tot_f["failures"],
         replayed_messages=tot_f["replayed"], messages=tot_f["sent"],
-        labels_equal_fault_free=same, max_memory_allocated=cc_fault_peak)
+        labels_equal_fault_free=same, max_memory_allocated=cc_fault_peak,
+        receive_launches=receives["faults_replay"])
     check(tot_f["converged"] and same,
           "CC under failures: labels differ from the fault-free labels")
     check(tot_f["failures"] == 4 and tot_f["replayed"] > 0,
           f"CC under failures: {tot_f['failures']} failures, "
           f"{tot_f['replayed']} replayed")
+    check(receives["faults_replay"] == tot_f["ticks"],
+          f"CC under failures: receive launches {receives['faults_replay']}"
+          f" != ticks {tot_f['ticks']}")
     del st_f
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4619,11 +4776,13 @@ def main() -> int:
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    rx0 = RK.deliver.launches
     t0 = time.perf_counter()
     sess = E.EngineSession(cfg_crowd, graph=graph, device=dev)
     tot_c = sess.tick_until_quiescent()
     torch.cuda.synchronize()
     crowd_s = time.perf_counter() - t0
+    receives["crowded_main"] = RK.deliver.launches - rx0
     crowd_launches = dict(K.spmv_partials.launches_by_form)
     in_flight = int(X.ring_pending(sess.ring))
     same = torch.equal(sess.state.values.reshape(-1)[
@@ -4637,7 +4796,11 @@ def main() -> int:
         pending=tot_c["pending"], ring_in_flight=in_flight,
         labels_equal_main_path=same, converged=tot_c["converged"],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
-        kernel_launches=crowd_launches)
+        kernel_launches=crowd_launches,
+        receive_launches=receives["crowded_main"])
+    check(receives["crowded_main"] == tot_c["ticks"],
+          f"crowded asymp_cc_large: receive launches "
+          f"{receives['crowded_main']} != ticks {tot_c['ticks']}")
     check(tot_c["converged"] and same,
           "crowded asymp_cc_large: labels differ from the main path's")
     check(tot_c["pending"] == 0 and in_flight == 0,
@@ -4653,9 +4816,9 @@ def main() -> int:
 
     # ---- 10. bench_crowded --smoke on the card ----
     t_phase = time.perf_counter()
-    smoke_launches = crowded_smoke_phase(np, torch, E, K, L, R, ops,
-                                         cfg_sssp, g_sssp, pg_sssp,
-                                         get_program, dev)
+    smoke_launches, receives["crowded_smoke"] = crowded_smoke_phase(
+        np, torch, E, K, L, R, RK, ops, cfg_sssp, g_sssp, pg_sssp,
+        get_program, dev)
     phase_s["crowded_smoke"] = time.perf_counter() - t_phase
 
     # ---- 11. kills and slowdowns on the crowded config, sync and async ----
@@ -4831,11 +4994,12 @@ def main() -> int:
     src = "src/repro_torch/csrc/semiring_spmv.cu"
     replaces = "src/repro/kernels/semiring_spmv.py:71"
 
-    # launches on the script's paths: the main path, pagerank, faults, the
-    # crowded main path and the elastic resize (none: the engine tick has
-    # no kernel), the crowded smoke's min_plus pull, and the serving
-    # plane's checks (serve_main: BSP and the min_plus pull on the patched
-    # graph; serve_rank: the pagerank oracle after each delta)
+    # SpMV launches on the script's paths: the main path, pagerank, faults,
+    # the crowded main path and the elastic resize (none: the engine tick
+    # launches only the receive kernel, counted below), the crowded smoke's
+    # min_plus pull, and the serving plane's checks (serve_main: BSP and
+    # the min_plus pull on the patched graph; serve_rank: the pagerank
+    # oracle after each delta)
     paths = (launches, pr_launches, fault_launches, crowd_launches,
              smoke_launches, elastic_launches, serve_launches, rank_launches)
 
@@ -4873,7 +5037,20 @@ def main() -> int:
     mxu["replaces"] = "src/repro/kernels/semiring_spmv.py:80"
     mxu["forms"] = [f for f in forms if f["tensor_cores"]
                     and f is not mxu_form]
-    print(json.dumps({"kernels": [idem, pt, mxu]}), flush=True)
+    # the receive kernel: one launch a tick on every engine path counted
+    # above (main path, bench_speed smoke, faults, crowded main and smoke);
+    # its forms at the main path's own receive, then the benchmark's shape
+    rx = {"name": "engine_receive[min,max,or x int32,float32] (the engine "
+                  "tick's receive: main path, bench_speed smoke, faults, "
+                  "crowded main and smoke)",
+          "route": "cuda", "source": "src/repro_torch/csrc/engine_receive.cu",
+          "replaces": "none (src/repro/core/engine.py::_phase2_receive is "
+                      "an XLA scatter)",
+          "launches": sum(receives.values()), "max_abs_err": 0.0,
+          **{k: rx_forms[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+          "launches_by_path": receives, "forms": rx_forms}
+    print(json.dumps({"kernels": [idem, pt, mxu, rx]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -12,7 +12,8 @@ the JAX package's ``vmap`` written out as a batch axis):
   route    — bucket messages by destination shard into fixed-capacity
              buffers; overflow => the sender retries next tick
   receive  — idempotent scatter-⊕ via the program's Aggregator; improved
-             vertices join the frontier
+             vertices join the frontier (on the card one hand kernel,
+             ``kernels/receive.py``)
 
 Push mode (pagerank, the non-idempotent SUM aggregator) moves mass
 instead: a selected vertex latches its residual, banks it into
@@ -58,6 +59,7 @@ from repro_torch.configs.base import GraphConfig
 from repro_torch.core import programs as prog_mod
 from repro_torch.core.graph import ShardedGraph, build_sharded_graph
 from repro_torch.dist import exchange as ex_mod
+from repro_torch.kernels import receive
 
 N_BUCKETS = 32
 
@@ -395,25 +397,13 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
     return active, cursor, send_vals, send_ids, sent, fetched, values, aux
 
 
-def _phase2_receive(prog, ep: EngineParams, values, active, cursor,
-                    recv_vals, recv_ids):
+def _phase2_receive(prog, values, active, cursor, recv_vals, recv_ids):
     """Deliver: idempotent scatter-⊕ (the program's aggregator); improved
-    vertices activate.  ``recv_* [P, ...]`` per receiving shard."""
-    agg = prog.aggregator
-    vs = ep.vs
-    P = values.shape[0]
-    ids = recv_ids.reshape(P, -1)
-    vals = recv_vals.reshape(P, -1).to(prog.tdtype)
-    valid = ids >= 0
-    idx = torch.where(valid, ids, vs)  # vs -> dropped (out of bounds)
-    old = values
-    values = agg.scatter(values, idx, vals)
-    prev = torch.gather(old, 1, torch.clamp(idx, 0, vs - 1).to(torch.int64))
-    accepted = (valid & agg.improves(vals, prev)).sum(dim=1)
-    changed = agg.improves(values, old)
-    active = active | changed
-    cursor = torch.where(changed, 0, cursor)
-    return values, active, cursor, accepted
+    vertices activate.  ``recv_* [P, R, C]`` per receiving shard.  On the
+    card one launch of ``csrc/engine_receive.cu`` that reads only the live
+    slots' values (``kernels/receive.py``)."""
+    return receive.deliver(prog.aggregator, values, active, cursor,
+                           recv_vals, recv_ids)
 
 
 def _phase2_receive_push(prog, ep: EngineParams, residual, active,
@@ -452,7 +442,7 @@ def _receive(prog, ep: EngineParams, push_mode: bool, values, active,
         return values, active, cursor, aux, accepted, old_plane, residual
     old_plane = values
     values, active, cursor, accepted = _phase2_receive(
-        prog, ep, values, active, cursor, recv_vals, recv_ids)
+        prog, values, active, cursor, recv_vals, recv_ids)
     return values, active, cursor, aux, accepted, old_plane, values
 
 

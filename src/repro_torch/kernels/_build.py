@@ -35,6 +35,17 @@ SIGNATURES = {
                                  _c.c_int),
         "cuda_error_string": ([_c.c_int], _c.c_char_p),
     },
+    "engine_receive": {
+        "engine_receive_launch": ([_c.c_int, _c.c_int, _c.c_int,
+                                   _c.c_void_p, _c.c_void_p,
+                                   _c.POINTER(_c.c_longlong),
+                                   _c.POINTER(_c.c_longlong), _c.c_int,
+                                   _c.c_int, _c.c_longlong, _c.c_void_p,
+                                   _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                                   _c.c_int, _c.c_void_p, _c.c_void_p],
+                                  _c.c_int),
+        "cuda_error_string": ([_c.c_int], _c.c_char_p),
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,9 @@ on random and on destination-sorted streams, and the tensor-core
 plain version, the main
 path against its CPU run, pagerank against its verdict, fault recovery
 against its CPU run, the crowded and async ticks against their CPU runs,
-the int16/int8 wire codec against its CPU calls, a forked session that
+the int16/int8 wire codec against its CPU calls, the engine tick's receive
+kernel against its plain version (every form and layout of
+``tests/_receive_cases.py``, and the benchmark's shape), a forked session that
 must leave its primary's tensors untouched, a small serving plane
 (CC + SSSP, one edge delta) against its CPU run, and the dense LM: the
 reduced archs' logits against the CPU, the slot server against
@@ -31,11 +33,15 @@ from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import faults as F  # noqa: E402
 from repro_torch.core import graph as G  # noqa: E402
 from repro_torch.core import merger as M  # noqa: E402
+from repro_torch.core.semiring import AGGREGATORS  # noqa: E402
 from repro_torch.dist import compression as C  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import receive as RK  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import semiring_spmv as K  # noqa: E402
 from repro_torch.serve import graph as S  # noqa: E402
+
+import _receive_cases as RC  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -287,7 +293,9 @@ def test_main_path_matches_cpu(cuda):
     assert _launches() - before == st_gpu["rounds"]
     lab_cpu, st_cpu = ops.bsp_connected_components(g, device="cpu")
     assert st_gpu == st_cpu and torch.equal(lab_gpu.cpu(), lab_cpu)
+    receives = RK.deliver.launches
     s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda)
+    assert RK.deliver.launches - receives == t_gpu["ticks"]
     s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu")
     for k in ("ticks", "sent", "accepted", "fetched", "converged"):
         assert t_gpu[k] == t_cpu[k], k
@@ -325,8 +333,10 @@ def test_cc_faults_match_cpu(cuda):
                       priority="log", enforce_fraction=0.5)
     g = G.build_sharded_graph(cfg)
     plan = F.FaultPlan(1.0, start_tick=4, every=6)
+    receives = RK.deliver.launches
     s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda,
                                         fault_plan=plan)
+    assert RK.deliver.launches - receives == t_gpu["ticks"]
     s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu",
                                         fault_plan=plan)
     for k in ("ticks", "sent", "failures", "replayed", "converged"):
@@ -350,8 +360,10 @@ def test_crowded_and_async_match_cpu(cuda, algorithm, schedule, faults):
     g = G.build_sharded_graph(cfg)
     plan = (F.FaultPlan(0.5, start_tick=4, every=6, slow_fraction=0.5,
                         slow_delay=3, slow_intensity=4) if faults else None)
+    receives = RK.deliver.launches
     s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda,
                                         fault_plan=plan, collect_log=True)
+    assert RK.deliver.launches - receives == t_gpu["ticks"]
     s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu",
                                         fault_plan=plan, collect_log=True)
     assert t_gpu == t_cpu and t_gpu["converged"] and t_gpu["pending"] == 0
@@ -385,6 +397,67 @@ def test_wire_codec_on_card_matches_cpu(cuda, bits):
     assert torch.equal(C.widen_int(n_gpu, bits, 2 ** 31 - 1,
                                    torch.int32).cpu(),
                        C.widen_int(n_cpu, bits, 2 ** 31 - 1, torch.int32))
+
+
+def _deliver_both(form, case):
+    """The kernel and the plain version on one case: the kernel launched
+    once, the inputs untouched, the four outputs bitwise equal."""
+    agg = AGGREGATORS[form[0]]
+    before = [t.clone() for t in case]
+    launches = RK.deliver.launches
+    got = RK.deliver(agg, *case)
+    torch.cuda.synchronize()
+    assert RK.deliver.launches == launches + 1
+    want = RK.deliver_ref(agg, *case)
+    for g, w, field in zip(got, want, ("values", "active", "cursor",
+                                       "accepted")):
+        assert g.dtype == w.dtype and torch.equal(g, w), field
+    for b, t in zip(before, case):
+        assert torch.equal(b, t)
+    return got
+
+
+@pytest.mark.parametrize("layout", RC.LAYOUTS)
+@pytest.mark.parametrize("form", RC.FORMS, ids=RC.form_id)
+def test_receive_kernel_matches_plain(cuda, form, layout):
+    """Every form and layout of the CPU tests: the kernel equals the plain
+    version and the one-message-at-a-time loop."""
+    case = RC.make_case(form, layout, cuda, seed=RC.LAYOUTS.index(layout))
+    got = _deliver_both(form, case)
+    for g, w in zip(got, RC.deliver_loop(form[0], *case)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("form", RC.FORMS, ids=RC.form_id)
+def test_receive_kernel_at_benchmark_shape(cuda, form):
+    """The benchmark's receive: the exchange's [8, 8, 255 k] views of 8
+    shards of 65,536 vertices, about 9 k live slots."""
+    case = RC.make_case(form, "exchange_view", cuda, seed=28,
+                        shape=(8, 8, 255_000), vs=65_536, live=5.5e-4)
+    live = int((case[4] >= 0).sum())
+    assert 8_000 < live < 10_000
+    got = _deliver_both(form, case)
+    assert 0 < int(got[3].sum()) <= live
+
+
+def test_receive_wrapper_refuses(cuda):
+    case = RC.make_case(RC.FORMS[0], "contiguous", cuda)
+    old, active, cursor, vals, ids = case
+    with pytest.raises(ValueError):  # not idempotent
+        RK.deliver(AGGREGATORS["sum"], *case)
+    with pytest.raises(TypeError):
+        RK.deliver(AGGREGATORS["min"], old, active, cursor, vals,
+                   ids.long())
+    with pytest.raises(TypeError):
+        RK.deliver(AGGREGATORS["min"], old, active, cursor, vals.float(),
+                   ids)
+    with pytest.raises(ValueError):
+        RK.deliver(AGGREGATORS["min"], old, active, cursor, vals[:2],
+                   ids[:2])
+    with pytest.raises(ValueError):  # a row's ids not one contiguous run
+        RK.deliver(AGGREGATORS["min"], old, active, cursor,
+                   vals.repeat_interleave(2, -1)[..., ::2],
+                   ids.repeat_interleave(2, -1)[..., ::2])
 
 
 def _session_tensors(sess) -> dict:
