@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -253,7 +253,9 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class GraphConfig:
-    """ASYMP graph workload config (the paper's own configs)."""
+    """ASYMP graph workload config (the paper's own configs).  Every field
+    but ``weight_rule`` and ``weight_seed`` is the JAX package's; their
+    defaults are that package's rule."""
 
     name: str
     # any program registered in core/programs.py:
@@ -278,6 +280,15 @@ class GraphConfig:
     max_ticks: int = 100000
     seed: int = 0
     weighted: bool = False
+    # how a weighted build draws its weights (core/graph.py):
+    # "directed" — one uniform(0.1, 1.0) a directed edge (the JAX
+    # package's rule); "undirected" — Graph500 kernel 3's, one draw from
+    # [0, 1) an undirected edge, carried by both directions
+    weight_rule: str = "directed"
+    # the seed of the weights' draw; None draws them from ``seed``, as the
+    # JAX package does.  Set, it holds one weight set whatever graph
+    # ``seed`` makes or is given: a fixed dataset
+    weight_seed: Optional[int] = None
     # crowded-cluster emulation (paper §5.4; dist/latency.py):
     # "none" | "uniform" | "stragglers" | "heavy_tail"
     latency_profile: str = "none"

@@ -1457,13 +1457,17 @@ def run_to_convergence(cfg: GraphConfig, *,
                        fault_plan=None, latency=None,
                        schedule: Optional[str] = None,
                        device: DeviceLike = None):
-    """Host loop (the propagation phase).  Returns (state, metrics dict).
-    See :class:`EngineSession` for ``latency`` and ``schedule``."""
+    """Host loop (the propagation phase).  Returns (state, metrics dict):
+    the session's totals and ``edges``, the graph's directed edges, a key
+    of the port's own (``fetched / edges`` is the job's relaxations over
+    Dijkstra's one an edge).  See :class:`EngineSession` for ``latency``
+    and ``schedule``."""
     session = EngineSession(cfg, graph=graph, prog=prog, params=params,
                             collect_log=collect_log, fault_plan=fault_plan,
                             latency=latency, schedule=schedule, device=device)
     totals = session.tick_until_quiescent(
         cfg.max_ticks if max_ticks is None else max_ticks)
+    totals["edges"] = int(session.graph.num_edges)
     return session.state, totals
 
 

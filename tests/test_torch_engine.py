@@ -414,4 +414,5 @@ def test_session_refuses_unported(rmat_cc_graph, kw, match):
     _, tt = TE.run_to_convergence(crowded, graph=tg, device="cpu")
     _, jt = JE.run_to_convergence(dataclasses.replace(
         cfg_j, latency_profile="stragglers"), graph=jg)
+    assert tt.pop("edges") == tg.num_edges  # the port's own key
     assert tt == jt and tt["converged"] and tt["pending"] == 0

@@ -33,6 +33,7 @@ from repro_torch.core import engine as E  # noqa: E402
 from repro_torch.core import faults as F  # noqa: E402
 from repro_torch.core import graph as G  # noqa: E402
 from repro_torch.core import merger as M  # noqa: E402
+from repro_torch.core import programs as PG  # noqa: E402
 from repro_torch.core.semiring import AGGREGATORS  # noqa: E402
 from repro_torch.dist import compression as C  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -343,6 +344,35 @@ def test_cc_faults_match_cpu(cuda):
         assert t_gpu[k] == t_cpu[k], k
     assert t_gpu["failures"] == 4 and t_gpu["replayed"] > 0
     assert torch.equal(s_gpu.values.cpu(), s_cpu.values)
+
+
+def test_undirected_sssp_on_card_matches_reference(cuda):
+    """Graph500 kernel 3's weights (one an undirected edge, in [0, 1)) on
+    the card: the float-min receive kernel takes every tick, and the job
+    equals the plain float32 min-plus fixpoint, which is unique, exactly."""
+    cfg = GraphConfig(name="t-g500", algorithm="sssp", num_vertices=4096,
+                      avg_degree=16, generator="rmat",
+                      rmat_abcd=(0.57, 0.19, 0.19, 0.05), num_shards=8,
+                      weighted=True, weight_rule="undirected", source=0,
+                      seed=2 ** 31 + 11)
+    g = G.build_sharded_graph(cfg)
+    receives = RK.deliver.launches
+    state, totals = E.run_to_convergence(cfg, graph=g, device=cuda)
+    assert RK.deliver.launches - receives == totals["ticks"]
+    assert totals["converged"] and totals["edges"] == g.num_edges
+    got = M.extract(state, g, PG.get_program(cfg))
+    edges, w = G.edge_list(g, with_weights=True)
+    src, dst = (torch.from_numpy(edges[:, i]) for i in (0, 1))
+    w = torch.from_numpy(w)
+    dist = torch.full((g.num_real_vertices,), float("inf"))
+    dist[0] = 0.0
+    while True:  # synchronous rounds to the fixpoint
+        nxt = dist.scatter_reduce(0, dst, dist[src] + w, "amin")
+        if torch.equal(nxt, dist):
+            break
+        dist = nxt
+    assert np.array_equal(got, dist.numpy())
+    assert np.isfinite(got).sum() > 1000
 
 
 @pytest.mark.parametrize("algorithm", ["cc", "sssp"])
