@@ -7,9 +7,9 @@ Phases, each printed as it ends with its seconds; any failed check exits
 non-zero:
 
   1. environment: torch, the card, ``nvidia-smi`` name and power limit;
-  2. build: compile ``csrc/semiring_spmv.cu`` and
-     ``csrc/engine_receive.cu`` with nvcc, print ptxas' registers, shared
-     memory and spills per kernel;
+  2. build: compile ``csrc/semiring_spmv.cu``,
+     ``csrc/engine_receive.cu`` and ``csrc/engine_create.cu`` with nvcc,
+     print ptxas' registers, shared memory and spills per kernel;
   3. the kernels against their plain PyTorch version on the same inputs —
      every (semiring, dtype) of the sweep and the tensor-core
      ``plus_times`` at 1/3/8 random-dst blocks (the scalar kernel's
@@ -35,7 +35,13 @@ non-zero:
      the benchmark's shape (``[8, 8, 255,000]`` views, about 9 k live
      slots, every idempotent form): bitwise its plain version, its device
      time beside the plain version's, one ``scatter_reduce_`` call's and
-     its bound (the id scan and the state planes' copies);
+     its bound (the id scan and the state planes' copies); then the
+     create kernels (``csrc/engine_create.cu``, one call a tick on every
+     engine path counted here, none in push mode) at the benchmark's two
+     shapes (WCC ``[8, 65,536]``, D 16, cap 255,000; SSSP ``[8, 131,072]``,
+     cap about 515,000): bitwise the plain create, their device time beside
+     the plain create's and their bound (the planes, the send-buffer fill,
+     the fetched edges);
   5. the ``benchmarks/bench_speed.py --smoke`` configs (RMAT 2^12): the
      fixpoints against the union-find and labelprop oracles, and the
      tick/message counts beside the JAX package's committed baselines;
@@ -289,6 +295,13 @@ PROFILE_WARM_TICKS, PROFILE_TICKS = 100, 20
 # the benchmark's receive (portbench's g500-wcc cells): 8 shards of 65,536
 # vertices, the exchange's [8, 8, 255,000] views, about 9 k live slots
 RECEIVE_SHAPE, RECEIVE_VS, RECEIVE_LIVE = (8, 8, 255_000), 65_536, 5.5e-4
+# the benchmark's create (portbench's cells, 8 shards, M = vs, D = 16):
+# (cell, program, vs, cap, share of the vertices active) — WCC at Graph500
+# scale 19 (cap 255,000), SSSP at scale 20 (cap about 515,000, by
+# derive_params on its largest shard); the frontiers make about the live
+# messages a tick the ledger counts (8.6 k and 42.5 k)
+CREATE_SHAPES = (("g500-wcc", "cc", 65_536, 255_000, 0.036),
+                 ("g500-sssp", "sssp", 131_072, 515_000, 0.088))
 # the JAX package's seeded, fault-free asymp_pagerank run (CPU): ticks and
 # messages.  The card's float scatter-add is atomic, so its counts may move
 JAX_PAGERANK = (7202, 98730925)
@@ -659,6 +672,87 @@ def receive_phase(torch, E, RK, AGG, sess, dev) -> list:
             torch, RK, AGG[form[0]], receive_views(torch, form, dev, 28 + i),
             f"the benchmark's shape, {form[0]}/{form[1]}"))
     return forms
+
+
+def create_inputs(np, torch, E, get_program, program, vs, cap, live, dev,
+                  seed: int):
+    """``(prog, ep, args)`` of one tick's create at a benchmark shape: 8
+    shards of ``vs`` vertices, a third of them without edges and the rest
+    with heavy-tailed degrees, edges to any shard, a frontier of ``live``
+    of the vertices, cursors at 0 or mid-stream."""
+    rng = np.random.default_rng(seed)
+    P = 8
+    prog = get_program(program, **({"source": 0} if program == "sssp"
+                                     else {}))
+    ep = E.EngineParams(
+        num_shards=P, vs=vs, max_vertices_per_tick=vs, degree_window=16,
+        route_capacity=cap, enforce_fraction=0.1, priority="log",
+        priority_scale=prog.priority_scale or float(P * vs))
+    deg = np.where(rng.random((P, vs)) < 0.36, 0, np.minimum(
+        (rng.pareto(1.2, (P, vs)) * 8 + 1).astype(np.int64), 60_000))
+    row_ptr = np.zeros((P, vs + 1), np.int64)
+    row_ptr[:, 1:] = np.cumsum(deg, axis=1)
+    es = int(row_ptr[:, -1].max())
+    put = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)  # noqa: E731
+    col_idx = torch.randint(0, P * vs, (P, es), device=dev,
+                            dtype=torch.int32,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+    if prog.tdtype == torch.int32:
+        values = rng.integers(0, P * vs, (P, vs))
+    else:
+        values = np.where(rng.random((P, vs)) < 0.5, np.inf,
+                          rng.random((P, vs)) * 20)
+    cursor = np.where(rng.random((P, vs)) < 0.7, 0,
+                      (deg * rng.random((P, vs))).astype(np.int64))
+    weights = (torch.rand((P, es), device=dev) if prog.weighted else None)
+    args = (put(values, np.int32 if prog.tdtype == torch.int32
+                else np.float32), put(rng.random((P, vs)) < live, np.bool_),
+            put(cursor, np.int32), put(row_ptr, np.int32), col_idx, weights)
+    return prog, ep, args
+
+
+def create_phase(np, torch, E, CK, get_program, dev) -> list:
+    """The create kernels at each cell's shape: launched once a call and
+    bitwise the plain create, then their device time beside the plain
+    create's and their bound: the [P, vs] planes read (values, active,
+    cursor: 9 bytes a vertex) and written (active, cursor: 5), the send
+    buffers filled once (8 bytes a slot), and each fetched edge's id (and
+    weight) read once."""
+    out = []
+    for i, (cell, program, vs, cap, live) in enumerate(CREATE_SHAPES):
+        prog, ep, args = create_inputs(np, torch, E, get_program, program,
+                                       vs, cap, live, dev, 30 + i)
+        launches = CK.create.launches
+        got = E._phase1_create(prog, ep, *args)
+        want = E._create_plain(prog, ep, *args)
+        torch.cuda.synchronize()
+        check(CK.create.launches == launches + 1,
+              f"the create kernels did not launch once ({cell})")
+        names = ("active", "cursor", "send_vals", "send_ids", "sent",
+                 "fetched", "values")
+        for g, w, field in zip(got, want, names):
+            check(torch.equal(g, w), f"the create kernels' {field} differs "
+                                     f"from the plain create ({cell})")
+        ms = cuda_ms(torch, lambda: E._phase1_create(prog, ep, *args), 50)
+        plain_ms = cuda_ms(torch, lambda: E._create_plain(prog, ep, *args),
+                           5)
+        P = args[0].shape[0]
+        fetched, sent = int(got[5].sum()), int(got[4].sum())
+        nbytes = (P * vs * (9 + 5) + P * ep.num_shards * cap * 8
+                  + fetched * (8 if prog.weighted else 4))
+        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        out.append({"cell": cell, "program": program,
+                    "shape": [P, vs], "M": ep.max_vertices_per_tick,
+                    "D": ep.degree_window, "cap": cap,
+                    "edges_a_shard": args[4].shape[1],
+                    "active": int(args[1].sum()), "fetched": fetched,
+                    "sent": sent, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": "bytes",
+                    "bytes": nbytes, "ms_over_bound": ms / bound_ms,
+                    "kernels_a_call": 6})
+        del got, want, args
+    return out
 
 
 def pagerank_verdict(torch, np, M, state, totals, g, oracle, where):
@@ -4356,6 +4450,7 @@ def main() -> int:
         from repro_torch.ft import checkpoint as CK
         from repro_torch.ft import elastic as EL
         from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import create as CRK
         from repro_torch.kernels import receive as RK
         from repro_torch.kernels import ref as R
         from repro_torch.kernels import semiring_spmv as K
@@ -4407,6 +4502,12 @@ def main() -> int:
         cached=built_rx["cached"],
         library=os.path.relpath(built_rx["path"], ROOT),
         ptxas=ptxas_summary(built_rx["report"], K.SEMIRINGS))
+    built_cr = _build.build("engine_create")
+    _build.load("engine_create")
+    say("build_create", seconds=round(built_cr["seconds"], 3),
+        cached=built_cr["cached"],
+        library=os.path.relpath(built_cr["path"], ROOT),
+        ptxas=ptxas_summary(built_cr["report"], K.SEMIRINGS))
 
     phase_s["environment_and_build"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
@@ -4566,13 +4667,15 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     receives = {}  # the receive kernel's launches, path by path
-    rx0 = RK.deliver.launches
+    creates = {}  # the create kernels' calls, path by path
+    rx0, cr0 = RK.deliver.launches, CRK.create.launches
     t0 = time.perf_counter()
     state, totals = E.run_to_convergence(cfg_large, graph=graph, device=dev,
                                          collect_log=True)
     torch.cuda.synchronize()
     prop_s = time.perf_counter() - t0
     receives["main_path"] = RK.deliver.launches - rx0
+    creates["main_path"] = CRK.create.launches - cr0
     t0 = time.perf_counter()
     bsp_labels, bsp = ops.bsp_connected_components(graph, device=dev,
                                                    pulled=pg_dev)
@@ -4592,7 +4695,7 @@ def main() -> int:
         bsp_messages=bsp["messages"], propagation_s=prop_s, bsp_s=bsp_s,
         pagerank_iters=PAGERANK_ITERS, pagerank_s=pagerank_s,
         kernel_launches=launches, receive_launches=receives["main_path"],
-        max_memory_allocated=peak,
+        create_launches=creates["main_path"], max_memory_allocated=peak,
         components=int(torch.unique(labels).numel()))
     check(totals["converged"], "the engine did not converge")
     check(torch.equal(labels, bsp_labels), "engine labels != BSP labels")
@@ -4602,6 +4705,9 @@ def main() -> int:
           f"plus_times launches {launches} != {PAGERANK_ITERS}")
     check(receives["main_path"] == totals["ticks"],
           f"receive launches {receives['main_path']} != ticks "
+          f"{totals['ticks']}")
+    check(creates["main_path"] == totals["ticks"],
+          f"create launches {creates['main_path']} != ticks "
           f"{totals['ticks']}")
     check(bool(torch.isfinite(ranks).all())
           and abs(float(ranks.sum()) - 1.0) < 1e-3,
@@ -4638,6 +4744,13 @@ def main() -> int:
     del sess
     phase_s["receive"] = time.perf_counter() - t_phase
 
+    # ---- 4d. the create kernels at the benchmark's shapes ----
+    t_phase = time.perf_counter()
+    cr_forms = create_phase(np, torch, E, CRK, get_program, dev)
+    for form in cr_forms:
+        say("create_kernel", **form)
+    phase_s["create"] = time.perf_counter() - t_phase
+
     # ---- 5. bench_speed smoke configs against the oracles ----
     t_phase = time.perf_counter()
     cfg = GraphConfig(name="smoke", algorithm="cc", num_vertices=1 << 12,
@@ -4652,15 +4765,18 @@ def main() -> int:
               "labelprop": G.labelprop_oracle(g.num_real_vertices, comp=comp)}
     for alg, (ticks0, msgs0) in SMOKE_BASELINE.items():
         c = dataclasses.replace(cfg, algorithm=alg, name=f"smoke-{alg}")
-        rx0 = RK.deliver.launches
+        rx0, cr0 = RK.deliver.launches, CRK.create.launches
         st, tot = E.run_to_convergence(c, graph=g, device=dev)
         rx = RK.deliver.launches - rx0
         receives[f"bench_speed_smoke {alg}"] = rx
+        creates[f"bench_speed_smoke {alg}"] = CRK.create.launches - cr0
         lab = st.values.reshape(-1)[: g.num_real_vertices].cpu().numpy()
         check(tot["converged"] and np.array_equal(lab, expect[alg]),
               f"smoke: {alg} fixpoint wrong")
         check(rx == tot["ticks"],
               f"smoke: {alg} receive launches {rx} != ticks {tot['ticks']}")
+        check(creates[f"bench_speed_smoke {alg}"] == tot["ticks"],
+              f"smoke: {alg} create launches != ticks {tot['ticks']}")
         say("bench_speed_smoke", program=alg, ticks=tot["ticks"],
             messages=tot["sent"], baseline_ticks=ticks0,
             baseline_messages=msgs0, receive_launches=rx,
@@ -4673,13 +4789,15 @@ def main() -> int:
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    rx0 = RK.deliver.launches
+    rx0, cr0 = RK.deliver.launches, CRK.create.launches
     t0 = time.perf_counter()
     st_pr, tot_pr = E.run_to_convergence(cfg_pr, graph=g_pr, device=dev)
     torch.cuda.synchronize()
     pr_s = time.perf_counter() - t0
     check(RK.deliver.launches == rx0,
           "push-mode pagerank launched the receive kernel")
+    check(CRK.create.launches == cr0,
+          "push-mode pagerank launched the create kernels")
     pr_peak = torch.cuda.max_memory_allocated()
     oracle = ops.pagerank(g_pr, damping=cfg_pr.damping, iters=ORACLE_ITERS,
                           dangling="absorb", device=dev, pulled=pg_pr)
@@ -4717,13 +4835,14 @@ def main() -> int:
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    rx0 = RK.deliver.launches
+    rx0, cr0 = RK.deliver.launches, CRK.create.launches
     t0 = time.perf_counter()
     st_f, tot_f = E.run_to_convergence(cfg_large, graph=graph, device=dev,
                                        fault_plan=F.FaultPlan(**plan))
     torch.cuda.synchronize()
     cc_fault_s = time.perf_counter() - t0
     receives["faults_replay"] = RK.deliver.launches - rx0
+    creates["faults_replay"] = CRK.create.launches - cr0
     cc_fault_peak = torch.cuda.max_memory_allocated()
     same = torch.equal(st_f.values.reshape(-1)[: graph.num_real_vertices],
                        labels)
@@ -4742,6 +4861,9 @@ def main() -> int:
           f"{tot_f['replayed']} replayed")
     check(receives["faults_replay"] == tot_f["ticks"],
           f"CC under failures: receive launches {receives['faults_replay']}"
+          f" != ticks {tot_f['ticks']}")
+    check(creates["faults_replay"] == tot_f["ticks"],
+          f"CC under failures: create launches {creates['faults_replay']}"
           f" != ticks {tot_f['ticks']}")
     del st_f
     torch.cuda.synchronize()
@@ -4776,13 +4898,14 @@ def main() -> int:
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    rx0 = RK.deliver.launches
+    rx0, cr0 = RK.deliver.launches, CRK.create.launches
     t0 = time.perf_counter()
     sess = E.EngineSession(cfg_crowd, graph=graph, device=dev)
     tot_c = sess.tick_until_quiescent()
     torch.cuda.synchronize()
     crowd_s = time.perf_counter() - t0
     receives["crowded_main"] = RK.deliver.launches - rx0
+    creates["crowded_main"] = CRK.create.launches - cr0
     crowd_launches = dict(K.spmv_partials.launches_by_form)
     in_flight = int(X.ring_pending(sess.ring))
     same = torch.equal(sess.state.values.reshape(-1)[
@@ -4797,10 +4920,14 @@ def main() -> int:
         labels_equal_main_path=same, converged=tot_c["converged"],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         kernel_launches=crowd_launches,
-        receive_launches=receives["crowded_main"])
+        receive_launches=receives["crowded_main"],
+        create_launches=creates["crowded_main"])
     check(receives["crowded_main"] == tot_c["ticks"],
           f"crowded asymp_cc_large: receive launches "
           f"{receives['crowded_main']} != ticks {tot_c['ticks']}")
+    check(creates["crowded_main"] == tot_c["ticks"],
+          f"crowded asymp_cc_large: create launches "
+          f"{creates['crowded_main']} != ticks {tot_c['ticks']}")
     check(tot_c["converged"] and same,
           "crowded asymp_cc_large: labels differ from the main path's")
     check(tot_c["pending"] == 0 and in_flight == 0,
@@ -5050,7 +5177,20 @@ def main() -> int:
           **{k: rx_forms[0][k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
           "launches_by_path": receives, "forms": rx_forms}
-    print(json.dumps({"kernels": [idem, pt, mxu, rx]}), flush=True)
+    # the create kernels: one call (six launches) a tick on the engine
+    # paths counted above; their forms at the benchmark's two shapes
+    cr = {"name": "engine_create[cc,sssp,bfs,reachability,widest_path,"
+                  "labelprop] (the engine tick's select, fetch, create and "
+                  "route: main path, bench_speed smoke, faults, crowded "
+                  "main)",
+          "route": "cuda", "source": "src/repro_torch/csrc/engine_create.cu",
+          "replaces": "none (src/repro/core/engine.py::_phase1_create is "
+                      "XLA code)",
+          "launches": sum(creates.values()), "max_abs_err": 0.0,
+          **{k: cr_forms[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")},
+          "launches_by_path": creates, "forms": cr_forms}
+    print(json.dumps({"kernels": [idem, pt, mxu, rx, cr]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,7 +10,9 @@ the JAX package's ``vmap`` written out as a batch axis):
   fetch    — streamed adjacency window per selected vertex (edge cursor)
   create   — program.combine over the fetched edges
   route    — bucket messages by destination shard into fixed-capacity
-             buffers; overflow => the sender retries next tick
+             buffers; overflow => the sender retries next tick (on the
+             card, for the idempotent programs, select to route is one
+             chain of hand kernels, ``kernels/create.py``)
   receive  — idempotent scatter-⊕ via the program's Aggregator; improved
              vertices join the frontier (on the card one hand kernel,
              ``kernels/receive.py``)
@@ -59,7 +61,7 @@ from repro_torch.configs.base import GraphConfig
 from repro_torch.core import programs as prog_mod
 from repro_torch.core.graph import ShardedGraph, build_sharded_graph
 from repro_torch.dist import exchange as ex_mod
-from repro_torch.kernels import receive
+from repro_torch.kernels import create, receive
 
 N_BUCKETS = 32
 
@@ -239,7 +241,25 @@ def _phase1_create(prog, ep: EngineParams, values, active, cursor,
     is fetched again when the cursor resumes there, which would count its
     mass twice under SUM.  When the stream completes the latch clears and
     the vertex stays active iff its residual re-accumulated past
-    ``push_eps``."""
+    ``push_eps``.
+
+    An idempotent program on the card takes ``kernels/create.py::create``
+    (the kernels of ``csrc/engine_create.cu``), which gives the same bits
+    without the padded ``[P, M, D]`` work; :func:`_create_plain` is its
+    plain version, and the path on the CPU and in push mode."""
+    if values.device.type == "cuda" and prog.aggregator.idempotent:
+        return create.create(prog, ep, values, active, cursor, row_ptr,
+                             col_idx, weights, throttle=throttle,
+                             demote=demote, stream_window=stream_window)
+    return _create_plain(prog, ep, values, active, cursor, row_ptr, col_idx,
+                         weights, aux, throttle, demote, stream_window)
+
+
+def _create_plain(prog, ep: EngineParams, values, active, cursor, row_ptr,
+                  col_idx, weights, aux=None, throttle=None, demote=None,
+                  stream_window=None):
+    """:func:`_phase1_create` in plain torch ops over the padded ``[P, M,
+    D]`` fetch windows, on any device."""
     P = values.shape[0]
     vs, M, D = ep.vs, ep.max_vertices_per_tick, ep.degree_window
     Pn, cap = ep.num_shards, ep.route_capacity

@@ -6,7 +6,10 @@ path against its CPU run, pagerank against its verdict, fault recovery
 against its CPU run, the crowded and async ticks against their CPU runs,
 the int16/int8 wire codec against its CPU calls, the engine tick's receive
 kernel against its plain version (every form and layout of
-``tests/_receive_cases.py``, and the benchmark's shape), a forked session that
+``tests/_receive_cases.py``, and the benchmark's shape), the engine tick's
+create kernels against the plain create and its loop (every case of
+``tests/_create_cases.py``) and in whole WCC and SSSP sessions, a forked
+session that
 must leave its primary's tensors untouched, a small serving plane
 (CC + SSSP, one edge delta) against its CPU run, and the dense LM: the
 reduced archs' logits against the CPU, the slot server against
@@ -36,12 +39,14 @@ from repro_torch.core import merger as M  # noqa: E402
 from repro_torch.core import programs as PG  # noqa: E402
 from repro_torch.core.semiring import AGGREGATORS  # noqa: E402
 from repro_torch.dist import compression as C  # noqa: E402
+from repro_torch.kernels import create as CK  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import receive as RK  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import semiring_spmv as K  # noqa: E402
 from repro_torch.serve import graph as S  # noqa: E402
 
+import _create_cases as CC  # noqa: E402
 import _receive_cases as RC  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -294,9 +299,10 @@ def test_main_path_matches_cpu(cuda):
     assert _launches() - before == st_gpu["rounds"]
     lab_cpu, st_cpu = ops.bsp_connected_components(g, device="cpu")
     assert st_gpu == st_cpu and torch.equal(lab_gpu.cpu(), lab_cpu)
-    receives = RK.deliver.launches
+    receives, creates = RK.deliver.launches, CK.create.launches
     s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda)
     assert RK.deliver.launches - receives == t_gpu["ticks"]
+    assert CK.create.launches - creates == t_gpu["ticks"]
     s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu")
     for k in ("ticks", "sent", "accepted", "fetched", "converged"):
         assert t_gpu[k] == t_cpu[k], k
@@ -334,10 +340,11 @@ def test_cc_faults_match_cpu(cuda):
                       priority="log", enforce_fraction=0.5)
     g = G.build_sharded_graph(cfg)
     plan = F.FaultPlan(1.0, start_tick=4, every=6)
-    receives = RK.deliver.launches
+    receives, creates = RK.deliver.launches, CK.create.launches
     s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda,
                                         fault_plan=plan)
     assert RK.deliver.launches - receives == t_gpu["ticks"]
+    assert CK.create.launches - creates == t_gpu["ticks"]
     s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu",
                                         fault_plan=plan)
     for k in ("ticks", "sent", "failures", "replayed", "converged"):
@@ -390,10 +397,11 @@ def test_crowded_and_async_match_cpu(cuda, algorithm, schedule, faults):
     g = G.build_sharded_graph(cfg)
     plan = (F.FaultPlan(0.5, start_tick=4, every=6, slow_fraction=0.5,
                         slow_delay=3, slow_intensity=4) if faults else None)
-    receives = RK.deliver.launches
+    receives, creates = RK.deliver.launches, CK.create.launches
     s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda,
                                         fault_plan=plan, collect_log=True)
     assert RK.deliver.launches - receives == t_gpu["ticks"]
+    assert CK.create.launches - creates == t_gpu["ticks"]
     s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu",
                                         fault_plan=plan, collect_log=True)
     assert t_gpu == t_cpu and t_gpu["converged"] and t_gpu["pending"] == 0
@@ -488,6 +496,77 @@ def test_receive_wrapper_refuses(cuda):
         RK.deliver(AGGREGATORS["min"], old, active, cursor,
                    vals.repeat_interleave(2, -1)[..., ::2],
                    ids.repeat_interleave(2, -1)[..., ::2])
+
+
+@pytest.mark.parametrize("case", CC.CASES, ids=CC.case_id)
+def test_create_kernel_matches_plain(cuda, case):
+    """Every case of the CPU tests on the card: the kernels launched once,
+    bitwise the plain create on the card and the loop, the inputs
+    untouched."""
+    prog, ep, args, kwargs = CC.make_case(case, cuda,
+                                          seed=CC.CASES.index(case))
+    before = [t.clone() for t in args if t is not None]
+    launches = CK.create.launches
+    got = E._phase1_create(prog, ep, *args, **kwargs)
+    torch.cuda.synchronize()
+    assert CK.create.launches == launches + 1
+    CC.assert_same(got, E._create_plain(prog, ep, *args, **kwargs),
+                   f"{case.name}: plain")
+    CC.assert_same(got, CC.create_loop(prog, ep, *args, **kwargs),
+                   f"{case.name}: loop")
+    assert got[6] is args[0]
+    for b, t in zip(before, [t for t in args if t is not None]):
+        assert torch.equal(b, t)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_create_kernel_at_block_edges(cuda, seed):
+    """Shapes that cut the kernels' blocks unevenly: more than one select
+    block a shard (vs > 1,024), route blocks of several slots with ties
+    across them, a wide window, a frontier above M and a cap that drops."""
+    case = CC.Case(f"blocks{seed}", ["cc", "sssp", "labelprop"][seed],
+                   weighted=seed == 1, P=5, Pn=5, vs=2_500, M=1_500,
+                   D=[16, 7, 300][seed], cap=[4_000, 900, 6_000][seed],
+                   rho=[0.2, 1.0, 0.6][seed], live=0.7,
+                   priority=["log", "log", "linear"][seed])
+    prog, ep, args, kwargs = CC.make_case(case, cuda, seed=seed)
+    got = E._phase1_create(prog, ep, *args, **kwargs)
+    CC.assert_same(got, E._create_plain(prog, ep, *args, **kwargs),
+                   case.name)
+
+
+def test_create_wrapper_refuses_on_card(cuda):
+    case = next(c for c in CC.CASES if c.name == "cc")
+    prog, ep, args, _ = CC.make_case(case, cuda)
+    values, active, cursor, row_ptr, col_idx, weights = args
+    with pytest.raises(ValueError):  # inputs on two devices
+        CK.create(prog, ep, values, active, cursor.cpu(), row_ptr, col_idx,
+                  weights)
+    with pytest.raises(ValueError):  # push mode
+        CK.create(PG.get_program("pagerank"), ep, *args)
+
+
+@pytest.mark.parametrize("algorithm", ["cc", "sssp"])
+def test_create_sessions_match_cpu(cuda, algorithm):
+    """Whole WCC and SSSP jobs on a small Graph500-like graph: every tick's
+    create is the kernels' (launches equal the ticks), and the totals, the
+    per-tick log and the fixpoint equal the CPU run's."""
+    cfg = GraphConfig(name="t-g500", algorithm=algorithm, num_vertices=8192,
+                      avg_degree=16, generator="rmat",
+                      rmat_abcd=(0.57, 0.19, 0.19, 0.05), num_shards=8,
+                      priority="log", enforce_fraction=0.1, source=0,
+                      weighted=algorithm == "sssp",
+                      weight_rule="undirected", seed=2 ** 31 + 30)
+    g = G.build_sharded_graph(cfg)
+    creates = CK.create.launches
+    s_gpu, t_gpu = E.run_to_convergence(cfg, graph=g, device=cuda,
+                                        collect_log=True)
+    assert CK.create.launches - creates == t_gpu["ticks"]
+    s_cpu, t_cpu = E.run_to_convergence(cfg, graph=g, device="cpu",
+                                        collect_log=True)
+    assert t_gpu == t_cpu and t_gpu["converged"]
+    for f in ("values", "active", "cursor", "tick"):
+        assert torch.equal(getattr(s_gpu, f).cpu(), getattr(s_cpu, f)), f
 
 
 def _session_tensors(sess) -> dict:
